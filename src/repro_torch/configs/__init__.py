@@ -1,0 +1,33 @@
+"""Architecture registry of the port: ``get_config(arch)`` -> ModelConfig
+(+ SMOKE variant).  Only the architectures the port serves are present;
+the others raise ``NotImplementedError``."""
+from __future__ import annotations
+
+import importlib
+
+ARCH_IDS = (
+    "gemma3-27b",
+    "gemma2-27b",
+    "h2o-danube-1.8b",
+    "qwen3-0.6b",
+    "grok-1-314b",
+    "olmoe-1b-7b",
+    "whisper-base",
+    "recurrentgemma-2b",
+    "xlstm-350m",
+    "qwen2-vl-7b",
+)
+
+PORTED = ("qwen3-0.6b",)
+
+# EC-SGHMC chain count per arch (the serving ensemble's K)
+EC_CHAINS = {"qwen3-0.6b": 4}
+
+
+def get_config(arch: str, smoke: bool = False):
+    if arch not in ARCH_IDS:
+        raise KeyError(f"unknown arch {arch!r}; choose from {ARCH_IDS}")
+    if arch not in PORTED:
+        raise NotImplementedError(f"arch {arch!r} is not ported yet; ported: {PORTED}")
+    mod = importlib.import_module(f"repro_torch.configs.{arch.replace('-', '_').replace('.', '_')}")
+    return mod.SMOKE if smoke else mod.CONFIG

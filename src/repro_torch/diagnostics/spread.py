@@ -1,0 +1,38 @@
+"""Cross-chain / ensemble dispersion summaries (the part the serving
+registry's promotion gate needs).  Every function reduces a chain-stacked
+nested dict (leading axis K on every leaf) to a handful of scalars."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models.common import tree_leaves
+
+
+def cross_chain_spread(tree) -> torch.Tensor:
+    """Element-weighted mean over all parameters of the per-element
+    variance across the leading chain axis.  0 ⇔ all chains identical."""
+    num, den = None, 0
+    for leaf in tree_leaves(tree):
+        v = torch.var(leaf.float(), dim=0, unbiased=False)
+        s = torch.sum(v)
+        num = s if num is None else num + s
+        den += int(v.numel())
+    return num / max(den, 1)
+
+
+def ensemble_spread_device(params_stack) -> dict:
+    """Reduce a (K, ...)-stacked ensemble to 0-d tensors on its device (no
+    host sync): chain spread, mean parameter norm and the scale-free
+    ``rel_spread`` (per-element cross-chain std over the RMS parameter)."""
+    leaves = tree_leaves(params_stack)
+    k = int(leaves[0].shape[0])
+    n_per_chain = max(sum(int(l.numel()) for l in leaves) // max(k, 1), 1)
+    spread = cross_chain_spread(params_stack)
+    sq = sum(torch.sum(l.float() ** 2, dim=tuple(range(1, l.ndim))) for l in leaves)
+    norms = torch.sqrt(sq)  # (K,)
+    rms_param = torch.mean(norms) / n_per_chain ** 0.5
+    return {
+        "chain_spread": spread,
+        "mean_param_norm": torch.mean(norms),
+        "rel_spread": torch.sqrt(spread) / torch.clamp(rms_param, min=1e-12),
+    }

@@ -1,0 +1,172 @@
+"""Dispatch wrappers for the hand-written kernels: argument guards, head-dim
+padding, and device selection.  A CPU tensor goes to the plain version in
+``ref``; a CUDA tensor goes to the CUDA kernel, or the call raises.  There
+is no fallback from one to the other.
+
+Each wrapper adds one to its entry in ``launches`` where it launches its
+kernel, and nowhere else, so a run can show that its main path went
+through the kernels.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from . import ref
+
+launches = {"flash_attention": 0, "paged_attention": 0, "bma_select": 0}
+
+BMA_CHUNK = 4096  # vocabulary elements per bma_select block
+_ATTN_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def _on_card(*tensors) -> bool:
+    """True for CUDA tensors, False for CPU tensors; raises on a mix of
+    devices or any other device type."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"tensors on different devices: {sorted(map(str, devices))}")
+    dev = devices.pop()
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"no kernel for device {dev}")
+    return dev.type == "cuda"
+
+
+def _require_contiguous(**tensors) -> None:
+    for name, t in tensors.items():
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _padded_head_dim(d: int) -> int:
+    """The kernels take d in {64, 128}; smaller heads are zero-padded."""
+    if d < 1 or d > 128:
+        raise ValueError(f"head_dim {d} not in [1, 128]")
+    return 64 if d <= 64 else 128
+
+
+def _pad_last(x, dp: int):
+    d = x.shape[-1]
+    return x if d == dp else F.pad(x, (0, dp - d))
+
+
+# --- flash attention ---------------------------------------------------------
+
+
+def flash_attention(q, k, v, *, causal=True, window=None, softcap=None, scale=None):
+    """(B, Hq, S, d) x (B, Hkv, S, d)^2 -> (B, Hq, S, d) in q's dtype.
+    Pads d to 64 or 128; the softmax scale keeps the ORIGINAL head dim."""
+    on_card = _on_card(q, k, v)
+    if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
+        raise ValueError("q, k, v must be 4-D (B, H, S, d)")
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _ATTN_DTYPES:
+        raise ValueError(f"q/k/v dtypes must match and be f32 or bf16, got {q.dtype}, {k.dtype}, {v.dtype}")
+    _require_contiguous(q=q, k=k, v=v)
+    B, Hq, S, d = q.shape
+    if k.shape != v.shape or k.shape[0] != B or k.shape[2:] != (S, d):
+        raise ValueError(f"k/v shape {tuple(k.shape)} does not match q {tuple(q.shape)}")
+    Hkv = k.shape[1]
+    if Hkv < 1 or Hq % Hkv:
+        raise ValueError(f"Hq={Hq} is not a multiple of Hkv={Hkv}")
+    dp = _padded_head_dim(d)
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    q, k, v = _pad_last(q, dp), _pad_last(k, dp), _pad_last(v, dp)
+    if not on_card:
+        out = ref.attention(q, k, v, causal=causal, window=window, softcap=softcap, scale=scale)
+    else:
+        from . import flash_attention as _fa
+
+        out = torch.empty_like(q)
+        _fa.launch(q, k, v, out, causal=causal, window=window, softcap=softcap, scale=scale)
+        launches["flash_attention"] += 1
+    return out[..., :d] if dp != d else out
+
+
+# --- paged attention (decode) ------------------------------------------------
+
+
+def paged_attention(q, k_pages, v_pages, block_tables, context_lens,
+                    *, scale=None, window=None, softcap=None):
+    """q (B, Hkv, G, d) vs paged pool (num_pages, bs, Hkv, d) through
+    (B, M) int32 block tables -> (B, Hkv, G, d).  Pads d to 64 or 128 (the
+    softmax scale keeps the ORIGINAL head dim); context_lens (B,) int32 is
+    the inclusive current position."""
+    on_card = _on_card(q, k_pages, v_pages, block_tables, context_lens)
+    if q.ndim != 4 or k_pages.ndim != 4 or v_pages.ndim != 4:
+        raise ValueError("q must be (B, Hkv, G, d) and pages (P, bs, Hkv, d)")
+    if not (q.dtype == k_pages.dtype == v_pages.dtype) or q.dtype not in _ATTN_DTYPES:
+        raise ValueError(f"q/page dtypes must match and be f32 or bf16, got {q.dtype}, {k_pages.dtype}")
+    if block_tables.dtype != torch.int32 or context_lens.dtype != torch.int32:
+        raise ValueError("block_tables and context_lens must be int32")
+    _require_contiguous(q=q, k_pages=k_pages, v_pages=v_pages,
+                        block_tables=block_tables, context_lens=context_lens)
+    B, Hkv, G, d = q.shape
+    P, bs = k_pages.shape[:2]
+    if v_pages.shape != k_pages.shape or k_pages.shape[2:] != (Hkv, d):
+        raise ValueError(f"page shape {tuple(k_pages.shape)} does not match q {tuple(q.shape)}")
+    if block_tables.ndim != 2 or block_tables.shape[0] != B or context_lens.shape != (B,):
+        raise ValueError("block_tables must be (B, M) and context_lens (B,)")
+    if not 1 <= G <= 8 or not 1 <= bs <= 128:
+        raise ValueError(f"kernel takes 1 <= G <= 8 and 1 <= block_size <= 128, got G={G}, bs={bs}")
+    dp = _padded_head_dim(d)
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    q, k_pages, v_pages = _pad_last(q, dp), _pad_last(k_pages, dp), _pad_last(v_pages, dp)
+    if not on_card:
+        out = ref.paged_attention(q, k_pages, v_pages, block_tables, context_lens,
+                                  scale=scale, window=window, softcap=softcap)
+    else:
+        from . import paged_attention as _pa
+
+        out = torch.empty_like(q)
+        _pa.launch(q, k_pages, v_pages, block_tables, context_lens, out,
+                   scale=scale, window=window, softcap=softcap)
+        launches["paged_attention"] += 1
+    return out[..., :d] if dp != d else out
+
+
+# --- fused BMA mixture + selection -------------------------------------------
+
+
+def fused_bma_select(logits, generator=None, *, mode="probs", temperature=0.0, top_k=0):
+    """(K, S, V) member logits -> (tokens (S,) int32, mixture logp (S, V)
+    f32) in one kernel.  The Gumbel draw happens HERE, from ``generator``,
+    exactly as ``sampling.select_tokens`` draws it, so sampled tokens of
+    the fused and unfused paths are bit-identical given the same mixture."""
+    from repro_torch.serve.sampling import gumbel_noise
+
+    if mode not in ("probs", "logprobs"):
+        raise ValueError(f"mode must be 'probs' or 'logprobs', got {mode!r}")
+    if logits.ndim != 3:
+        raise ValueError(f"logits must be (K, S, V), got shape {tuple(logits.shape)}")
+    K, S, V = logits.shape
+    if K < 1 or S < 1 or V < 1:
+        raise ValueError(f"need K, S, V >= 1, got {(K, S, V)}")
+    if not logits.is_floating_point():
+        raise ValueError(f"logits must be floating point, got {logits.dtype}")
+    if top_k < 0:
+        raise ValueError("top_k must be >= 0")
+    _require_contiguous(logits=logits)
+    on_card = _on_card(logits)
+    logits = logits.float()
+    gumbel = None
+    if temperature > 0.0:
+        if generator is None:
+            raise ValueError("temperature > 0 sampling needs a generator")
+        gumbel = gumbel_noise((S, V), generator, logits.device)
+    if not on_card:
+        return ref.bma_select(logits, gumbel, mode=mode, temperature=temperature, top_k=top_k)
+    from . import bma_select as _bs
+
+    if K > _bs.MAX_K:
+        raise ValueError(f"kernel takes K <= {_bs.MAX_K} members, got {K}")
+    tok, logp = _bs.launch(logits, gumbel, mode=mode, temperature=float(temperature),
+                           top_k=int(top_k), chunk=BMA_CHUNK)
+    launches["bma_select"] += 1
+    return tok, logp

@@ -1,0 +1,15 @@
+from .common import LayerKind, ModelConfig, ParamSpec, init_params, num_params, tree_leaves, tree_map
+from .registry import ModelDef, PagedDef, get_model
+
+__all__ = [
+    "LayerKind",
+    "ModelConfig",
+    "ModelDef",
+    "PagedDef",
+    "ParamSpec",
+    "get_model",
+    "init_params",
+    "num_params",
+    "tree_leaves",
+    "tree_map",
+]

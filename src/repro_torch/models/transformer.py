@@ -1,0 +1,301 @@
+"""Decoder-only LM, attention-only families (the dense archs).
+
+Layers follow a repeating block *pattern*: params for pattern position i
+are stacked with a leading (num_periods,) axis, exactly as in the
+reference package, so weights cross one to one; the forward passes loop
+over periods where the reference scans.  Remainder layers (depth %
+period) are applied after the loop.  MoE and recurrent block kinds are not
+ported and raise.
+
+Entry points per model:
+  prefill(cfg, params, batch, max_seq)     -> (last_logits, cache)
+  decode_step(cfg, params, cache, tokens)  -> (logits, cache)
+  paged_decode_step(cfg, params, pools, tokens, tables, ctx, write_block)
+                                           -> (logits, pools)
+Decode steps write their caches and pools IN PLACE and return them.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from . import layers as L
+from .common import LayerKind, ModelConfig, ParamSpec, tree_map
+
+
+def _check_kind(kind: LayerKind) -> None:
+    if kind.kind != "attn" or kind.moe:
+        raise NotImplementedError(
+            f"block kind {kind.kind!r} (moe={kind.moe}) is not ported; only dense attention"
+        )
+
+
+# ---------------------------------------------------------------------------
+# Spec stacking
+# ---------------------------------------------------------------------------
+
+
+def stack_specs(specs, n: int):
+    return tree_map(lambda s: dataclasses.replace(s, shape=(n,) + s.shape, axes=(None,) + s.axes),
+                    specs)
+
+
+def _block_specs(cfg: ModelConfig, kind: LayerKind) -> dict:
+    _check_kind(kind)
+    sp = {"ln1": L.norm_spec(cfg), "attn": L.attn_specs(cfg), "ln2": L.norm_spec(cfg),
+          "mlp": L.mlp_specs(cfg)}
+    if cfg.sandwich_norm:
+        sp["post_ln1"] = L.norm_spec(cfg)
+        sp["post_ln2"] = L.norm_spec(cfg)
+    return sp
+
+
+def _layout(cfg: ModelConfig):
+    """(pattern P, num_periods, remainder kinds)."""
+    P = len(cfg.pattern)
+    n_periods = cfg.num_layers // P
+    rem_kinds = cfg.layer_kinds[n_periods * P:]
+    return P, n_periods, rem_kinds
+
+
+def param_specs(cfg: ModelConfig) -> dict:
+    P, n_periods, rem_kinds = _layout(cfg)
+    specs = {
+        "embed": L.embed_specs(cfg),
+        "layers": {
+            str(i): stack_specs(_block_specs(cfg, cfg.pattern[i]), n_periods)
+            for i in range(P)
+        },
+        "final_norm": L.norm_spec(cfg),
+    }
+    if rem_kinds:
+        specs["rem"] = {str(i): _block_specs(cfg, k) for i, k in enumerate(rem_kinds)}
+    return specs
+
+
+def _blocks(cfg: ModelConfig, tree):
+    """(kind, subtree) per layer in execution order: period n, pattern
+    position i reads ``tree["layers"][str(i)]`` at index n; then the
+    remainder layers."""
+    P, n_periods, rem_kinds = _layout(cfg)
+    for n in range(n_periods):
+        for i in range(P):
+            yield cfg.pattern[i], tree_map(lambda a: a[n], tree["layers"][str(i)])
+    for i, kind in enumerate(rem_kinds):
+        yield kind, tree["rem"][str(i)]
+
+
+# ---------------------------------------------------------------------------
+# Block application
+# ---------------------------------------------------------------------------
+
+
+def _norm(cfg, x, w):
+    return L.rms_norm(x, w, cfg.norm_eps, cfg.norm_scale_offset)
+
+
+def _ffn_tail(cfg, p, x, h):
+    if cfg.sandwich_norm:
+        h = _norm(cfg, h, p["post_ln1"])
+    x = x + h
+    h = L.mlp(cfg, p["mlp"], _norm(cfg, x, p["ln2"]))
+    if cfg.sandwich_norm:
+        h = _norm(cfg, h, p["post_ln2"])
+    return x + h
+
+
+def apply_block(cfg: ModelConfig, kind: LayerKind, p, x, positions):
+    _check_kind(kind)
+    h = L.attention(cfg, p["attn"], _norm(cfg, x, p["ln1"]), positions, kind.window)
+    return _ffn_tail(cfg, p, x, h)
+
+
+def decode_block(cfg: ModelConfig, kind: LayerKind, p, x, cache, t):
+    _check_kind(kind)
+    h, _ = L.decode_attention(cfg, p["attn"], _norm(cfg, x, p["ln1"]), cache["attn"], t, kind.window)
+    return _ffn_tail(cfg, p, x, h)
+
+
+def make_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype, device="cuda"):
+    """Dense decode cache: leaves (n_periods, batch, L, Hkv, dh) per pattern
+    layer, plus ``t``, the next position (0-d)."""
+    P, n_periods, rem_kinds = _layout(cfg)
+
+    def one(kind, lead):
+        _check_kind(kind)
+        return {"attn": L.init_cache(cfg, batch, max_seq, kind.window, dtype, device, lead)}
+
+    cache = {
+        "layers": {str(i): one(cfg.pattern[i], (n_periods,)) for i in range(P)},
+        "t": torch.zeros((), dtype=torch.int32, device=device),
+    }
+    if rem_kinds:
+        cache["rem"] = {str(i): one(k, ()) for i, k in enumerate(rem_kinds)}
+    return cache
+
+
+# ---------------------------------------------------------------------------
+# Forward passes
+# ---------------------------------------------------------------------------
+
+
+def _positions(cfg: ModelConfig, batch, B, S, device):
+    if "positions" in batch:
+        return batch["positions"]
+    if cfg.mrope_sections is not None:
+        raise NotImplementedError("M-RoPE position streams are not ported")
+    return torch.arange(S, dtype=torch.int32, device=device)[None].expand(B, S)
+
+
+def backbone(cfg: ModelConfig, params, x, positions):
+    for kind, p in _blocks(cfg, params):
+        x = apply_block(cfg, kind, p, x, positions)
+    return _norm(cfg, x, params["final_norm"])
+
+
+def train_nll(cfg: ModelConfig, params, batch):
+    raise NotImplementedError("train_nll is ported with the sampler slice")
+
+
+def _prefill_block(cfg, kind, p, x, cache, positions):
+    """apply_block + fill this layer's cache (a view, written in place)
+    from the full-sequence pass."""
+    _check_kind(kind)
+    xin = _norm(cfg, x, p["ln1"])
+    _, k, v = L._qk(cfg, p["attn"], xin, positions)
+    ck, cv = cache["attn"]["k"], cache["attn"]["v"]
+    Lc = ck.shape[1]
+    S = k.shape[1]
+    if S >= Lc:  # window (or exactly-full) cache: keep the last Lc entries
+        kk, vv = k[:, S - Lc:], v[:, S - Lc:]
+        if kind.window and S > Lc:
+            # ring-buffer alignment: slot j holds pos with pos % Lc == j
+            kk, vv = torch.roll(kk, S % Lc, dims=1), torch.roll(vv, S % Lc, dims=1)
+        ck.copy_(kk)
+        cv.copy_(vv)
+    else:
+        ck[:, :S] = k.to(ck.dtype)
+        cv[:, :S] = v.to(cv.dtype)
+    return apply_block(cfg, kind, p, x, positions)
+
+
+def prefill(cfg: ModelConfig, params, batch, max_seq: int, cache_dtype=None):
+    """Run the full prompt, building the decode cache; returns
+    (last_token_logits (B,1,V), cache)."""
+    tokens = batch["tokens"]
+    B = tokens.shape[0]
+    x = L.embed(cfg, params["embed"], tokens)
+    S = x.shape[1]
+    positions = _positions(cfg, batch, B, S, x.device)
+    cache = make_cache(cfg, B, max_seq, cache_dtype or cfg.compute_dtype, x.device)
+    for (kind, p), (_, c) in zip(_blocks(cfg, params), _blocks(cfg, cache)):
+        x = _prefill_block(cfg, kind, p, x, c, positions)
+    cache["t"] = torch.tensor(S, dtype=torch.int32, device=x.device)
+    x = _norm(cfg, x, params["final_norm"])
+    logits = L.final_logits(cfg, params["embed"], x[:, -1:])
+    return logits, cache
+
+
+def decode_step(cfg: ModelConfig, params, cache, tokens):
+    """tokens: (B, 1) -> (logits (B,1,V), cache).  One new position per
+    row; ``cache["t"]`` is 0-d or (B,) (per-row positions).  The k/v leaves
+    are written in place; ``t`` is replaced by t + 1."""
+    t = cache["t"]
+    x = L.embed(cfg, params["embed"], tokens)
+    for (kind, p), (_, c) in zip(_blocks(cfg, params), _blocks(cfg, cache)):
+        x = decode_block(cfg, kind, p, x, c, t)
+    cache["t"] = t + 1
+    x = _norm(cfg, x, params["final_norm"])
+    return L.final_logits(cfg, params["embed"], x), cache
+
+
+# ---------------------------------------------------------------------------
+# Paged decode (block-paged KV pools)
+# ---------------------------------------------------------------------------
+
+
+def check_paged_support(cfg: ModelConfig) -> None:
+    """Paged pools hold absolute-position pages, so every layer must be
+    non-windowed attention and RoPE must be single-stream."""
+    for kind in cfg.layer_kinds:
+        if kind.kind != "attn":
+            raise ValueError(f"paged decode supports attn-only models, got {kind.kind!r}")
+        if kind.window:
+            raise ValueError("paged decode does not support sliding-window layers")
+    if cfg.mrope_sections is not None:
+        raise ValueError("paged decode does not support M-RoPE position streams")
+
+
+def make_paged_pools(cfg: ModelConfig, num_pages: int, block_size: int, dtype, device="cuda"):
+    """Flat page pools mirroring the make_cache layer structure: leaves
+    (n_periods, num_pages, bs, Hkv, dh) for pattern layers (page 0 is the
+    reserved sink).  No "t" leaf: positions live in the engine's per-slot
+    context lengths."""
+    check_paged_support(cfg)
+    P, n_periods, rem_kinds = _layout(cfg)
+
+    def one(lead):
+        return {"attn": L.init_page_pool(cfg, num_pages, block_size, dtype, device, lead)}
+
+    pools = {"layers": {str(i): one((n_periods,)) for i in range(P)}}
+    if rem_kinds:
+        pools["rem"] = {str(i): one(()) for i in range(len(rem_kinds))}
+    return pools
+
+
+def _scatter_pages(pool_leaf, cache_leaf, table_row, block_size, stacked):
+    """Write one slot's dense prefill cache (.., 1, L, Hkv, dh) into its
+    table row's pages, in place.  L is ceil-padded to M*bs; overflow blocks
+    land in whatever table_row maps them to — the sink for unallocated
+    tails."""
+    M = table_row.shape[0]
+    c = cache_leaf[:, 0] if stacked else cache_leaf[0]  # (P?, L, Hkv, dh)
+    seq_ax = 1 if stacked else 0
+    pad = M * block_size - c.shape[seq_ax]
+    if pad:
+        widths = [0, 0] * (c.ndim - seq_ax - 1) + [0, pad]
+        c = torch.nn.functional.pad(c, widths)
+    blocks = c.reshape(c.shape[:seq_ax] + (M, block_size) + c.shape[seq_ax + 1:])
+    idx = table_row.long()
+    if stacked:
+        pool_leaf[:, idx] = blocks.to(pool_leaf.dtype)
+    else:
+        pool_leaf[idx] = blocks.to(pool_leaf.dtype)
+    return pool_leaf
+
+
+def paged_prefill_write(cfg: ModelConfig, pools, slot_cache, table_row, block_size: int):
+    """Scatter a freshly prefilled slot cache (from :func:`prefill` with
+    batch=1) into the paged pools along ``table_row`` (M,) int32, in place.
+    Shared prefix pages are rewritten with bit-identical content."""
+    P, n_periods, rem_kinds = _layout(cfg)
+    for i in range(P):
+        for kk in ("k", "v"):
+            _scatter_pages(pools["layers"][str(i)]["attn"][kk],
+                           slot_cache["layers"][str(i)]["attn"][kk],
+                           table_row, block_size, stacked=True)
+    for i in range(len(rem_kinds)):
+        for kk in ("k", "v"):
+            _scatter_pages(pools["rem"][str(i)]["attn"][kk],
+                           slot_cache["rem"][str(i)]["attn"][kk],
+                           table_row, block_size, stacked=False)
+    return pools
+
+
+def paged_decode_step(cfg: ModelConfig, params, pools, tokens, block_tables,
+                      context_lens, write_block):
+    """All-slots-jointly decode: tokens (S, 1), block_tables (S, M) int32,
+    context_lens (S,) int32 current positions, write_block (S,) int32
+    destination pages.  Returns (logits (S, 1, V), pools) with the pools
+    written in place."""
+    x = L.embed(cfg, params["embed"], tokens)
+    for (kind, p), (_, pool) in zip(_blocks(cfg, params), _blocks(cfg, pools)):
+        _check_kind(kind)
+        h, _ = L.paged_decode_attention(
+            cfg, p["attn"], _norm(cfg, x, p["ln1"]), pool["attn"],
+            block_tables, context_lens, write_block,
+        )
+        x = _ffn_tail(cfg, p, x, h)
+    x = _norm(cfg, x, params["final_norm"])
+    return L.final_logits(cfg, params["embed"], x), pools

@@ -37,6 +37,11 @@ def pytest_configure(config):
         "in a child pytest launched via tests.util.run_multidevice_suite "
         f"(which sets {MULTIDEVICE_CHILD_ENV}=1), auto-skips otherwise",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA card and nvcc (the PyTorch port's hand-written "
+        "kernels); skips without one",
+    )
 
 
 def pytest_collection_modifyitems(config, items):

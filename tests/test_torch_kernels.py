@@ -1,0 +1,310 @@
+"""The port's kernel dispatch on the CPU against the reference kernels.
+
+On a CPU tensor each wrapper in ``repro_torch.kernels.ops`` runs the
+kernel's plain version (``repro_torch.kernels.ref``); these tests hold it,
+with the wrappers' head-dim padding, against ``repro.kernels.ops`` (the
+Pallas kernels, in interpret mode on the CPU) and ``repro.kernels.ref`` on
+the same numpy inputs.  The CUDA kernels themselves run only on a card:
+``chip_smoke.py`` holds them against the same plain versions there, and
+the ``cuda``-marked tests below skip without one.  Every guard of the
+wrappers has a test.
+"""
+from __future__ import annotations
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import kernels as jkernels
+from repro.kernels import bma_select as jbma
+from repro.kernels import ref as jref
+from repro_torch.kernels import launches, ops, ref
+from repro_torch.serve.engine.bma import mixture_logprobs
+from repro_torch.serve.sampling import SamplingParams, gumbel_noise, select_tokens
+
+# The reference suite's tolerance for these pairings (tests/test_paged_attention.py).
+# Measured gaps on these inputs: attention <= 7.0e-7, paged and bma below that.
+ATOL = 2e-6
+
+
+def _np(seed, *shape, scale=1.0):
+    return (scale * np.random.default_rng(seed).standard_normal(shape)).astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# flash attention
+# ---------------------------------------------------------------------------
+
+
+FLASH_CASES = {
+    "causal": dict(B=2, Hq=4, Hkv=4, S=32, d=64),
+    "gqa": dict(B=1, Hq=4, Hkv=2, S=32, d=128),
+    "window": dict(B=1, Hq=4, Hkv=2, S=32, d=64, window=8),
+    "softcap": dict(B=1, Hq=2, Hkv=1, S=16, d=64, softcap=5.0),
+    "d16_padded": dict(B=1, Hq=4, Hkv=2, S=16, d=16),
+    "noncausal": dict(B=1, Hq=2, Hkv=2, S=16, d=64, causal=False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+def test_flash_matches_reference_kernel(case):
+    c = dict(FLASH_CASES[case])
+    B, Hq, Hkv, S, d = (c.pop(k) for k in ("B", "Hq", "Hkv", "S", "d"))
+    causal = c.pop("causal", True)
+    q, k, v = _np(1, B, Hq, S, d), _np(2, B, Hkv, S, d), _np(3, B, Hkv, S, d)
+    got = ops.flash_attention(torch.tensor(q), torch.tensor(k), torch.tensor(v),
+                              causal=causal, **c).numpy()
+    want_ref = np.asarray(jref.attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                         causal=causal, **c))
+    np.testing.assert_allclose(got, want_ref, atol=ATOL)
+    if causal:  # the Pallas kernel is causal-only in the reference's dispatch
+        want = np.asarray(jkernels.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                                                   jnp.asarray(v), causal=True, **c))
+        np.testing.assert_allclose(got, want, atol=ATOL)
+    assert launches["flash_attention"] == 0  # the CPU path launches nothing
+
+
+def test_flash_bf16_keeps_dtype():
+    q = torch.tensor(_np(4, 1, 2, 16, 64)).to(torch.bfloat16)
+    out = ops.flash_attention(q, q[:, :1].contiguous(), q[:, :1].contiguous())
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+
+
+# ---------------------------------------------------------------------------
+# paged attention
+# ---------------------------------------------------------------------------
+
+
+def _paged_case(seed, *, B, Hkv, G, d, bs, M, permute=False, ctx=None):
+    P = B * M + 1
+    q = _np(seed, B, Hkv, G, d)
+    kp, vp = _np(seed + 1, P, bs, Hkv, d), _np(seed + 2, P, bs, Hkv, d)
+    pages = np.arange(1, P, dtype=np.int32)
+    if permute:
+        pages = np.random.default_rng(seed).permutation(pages).astype(np.int32)
+    tables = pages.reshape(B, M)
+    if ctx is None:
+        ctx = np.random.default_rng(seed + 3).integers(0, M * bs, size=B).astype(np.int32)
+    return q, kp, vp, tables, np.asarray(ctx, np.int32)
+
+
+PAGED_CASES = {
+    "bs8": dict(B=3, Hkv=2, G=2, d=16, bs=8, M=3),
+    "bs16_permuted": dict(B=4, Hkv=2, G=2, d=64, bs=16, M=3, permute=True),
+    "bs64": dict(B=2, Hkv=1, G=4, d=32, bs=64, M=2),
+    "ctx0": dict(B=3, Hkv=2, G=1, d=16, bs=8, M=2, ctx=[0, 0, 5]),
+    "window": dict(B=3, Hkv=2, G=2, d=16, bs=8, M=4, window=11),
+    "softcap": dict(B=2, Hkv=2, G=2, d=16, bs=8, M=3, softcap=3.0),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PAGED_CASES))
+def test_paged_matches_reference_kernel(case):
+    c = dict(PAGED_CASES[case])
+    kw = {k: c.pop(k) for k in ("window", "softcap") if k in c}
+    q, kp, vp, tab, ctx = _paged_case(len(case), **c)
+    got = ops.paged_attention(*(torch.tensor(a) for a in (q, kp, vp, tab, ctx)), **kw).numpy()
+    jargs = [jnp.asarray(a) for a in (q, kp, vp, tab, ctx)]
+    want = np.asarray(jkernels.paged_attention(*jargs, **kw))
+    want_ref = np.asarray(jref.paged_attention(*jargs, **kw))
+    np.testing.assert_allclose(got, want, atol=ATOL)
+    np.testing.assert_allclose(got, want_ref, atol=ATOL)
+    assert launches["paged_attention"] == 0
+
+
+def test_gather_pages_matches_reference():
+    q, kp, vp, tab, ctx = _paged_case(9, B=2, Hkv=2, G=1, d=8, bs=4, M=3, permute=True)
+    np.testing.assert_array_equal(ref.gather_pages(torch.tensor(kp), torch.tensor(tab)).numpy(),
+                                  np.asarray(jref.gather_pages(jnp.asarray(kp), jnp.asarray(tab))))
+
+
+# ---------------------------------------------------------------------------
+# BMA mixture + selection
+# ---------------------------------------------------------------------------
+
+
+def _bma_inputs(seed, K=3, S=4, V=37):
+    logits = _np(seed, K, S, V, scale=4.0)
+    # slot 1: a forced tie at the argmax (identical columns in every member)
+    logits[:, 1, 7] = logits[:, 1, 20] = logits[:, 1].max() + 1.0
+    # slot 2: forced ties at the top-5 boundary (three equal 4th..6th values)
+    logits[:, 2, :] = -3.0
+    logits[:, 2, [3, 9, 30]] = 5.0
+    logits[:, 2, [11, 12, 13]] = 2.0
+    gumbel = _np(seed + 1, S, V)
+    return logits, gumbel
+
+
+@pytest.mark.parametrize("mode", ["probs", "logprobs"])
+@pytest.mark.parametrize("temperature,top_k", [(0.0, 0), (1.3, 0), (0.7, 5), (2.0, 1)])
+def test_bma_select_matches_reference_kernel(mode, temperature, top_k):
+    logits, gumbel = _bma_inputs(17)
+    kw = dict(mode=mode, temperature=temperature, top_k=top_k)
+    tok, logp = ref.bma_select(torch.tensor(logits), torch.tensor(gumbel), **kw)
+    jt, jl = jbma.bma_select(jnp.asarray(logits), jnp.asarray(gumbel), interpret=True, **kw)
+    rt, rl = jref.bma_select(jnp.asarray(logits), jnp.asarray(gumbel), **kw)
+    np.testing.assert_array_equal(tok.numpy(), np.asarray(jt))
+    np.testing.assert_array_equal(tok.numpy(), np.asarray(rt))
+    np.testing.assert_allclose(logp.numpy(), np.asarray(jl), atol=ATOL)
+    np.testing.assert_allclose(logp.numpy(), np.asarray(rl), atol=ATOL)
+
+
+def test_bma_forced_ties():
+    logits, gumbel = _bma_inputs(17)
+    tok, _ = ref.bma_select(torch.tensor(logits), None, mode="probs", temperature=0.0, top_k=0)
+    assert int(tok[1]) == 7  # first of the tied maxima
+    # top-3 at slot 2 keeps exactly the three 5.0 columns; top-5 keeps the
+    # 2.0 ties too (duplicates count toward k, ties at the k-th are kept)
+    from repro_torch.serve.sampling import _top_k_mask
+
+    row = mixture_logprobs(torch.tensor(logits), "probs")[2:3]
+    assert torch.isfinite(_top_k_mask(row, 3)).sum() == 3
+    assert torch.isfinite(_top_k_mask(row, 5)).sum() == 6
+
+
+@pytest.mark.parametrize("mode", ["probs", "logprobs"])
+@pytest.mark.parametrize("temperature,top_k", [(0.0, 0), (1.3, 0), (0.7, 5)])
+def test_fused_select_bit_equal_to_unfused(mode, temperature, top_k):
+    """The wrapper draws its Gumbel tensor exactly as select_tokens does:
+    with the same generator seed the tokens are bit-equal."""
+    logits = torch.tensor(_np(23, 3, 5, 151))
+    sampling = SamplingParams(temperature=temperature, top_k=top_k)
+    tok, logp = ops.fused_bma_select(logits, torch.Generator().manual_seed(5), mode=mode,
+                                     temperature=temperature, top_k=top_k)
+    want_logp = mixture_logprobs(logits, mode)
+    want = select_tokens(want_logp, torch.Generator().manual_seed(5), sampling)
+    torch.testing.assert_close(tok, want, rtol=0, atol=0)
+    torch.testing.assert_close(logp, want_logp, rtol=0, atol=0)
+    assert launches["bma_select"] == 0
+
+
+def test_sampling_helpers_match_reference():
+    from repro.serve import sampling as jsampling
+    from repro_torch.serve.sampling import _top_k_mask, mask_after_eos
+
+    x = _np(31, 4, 50)
+    x[1, [4, 9]] = x[1].max() + 1.0  # a tie at the argmax
+    np.testing.assert_array_equal(select_tokens(torch.tensor(x)).numpy(),
+                                  np.asarray(jsampling.select_tokens(jnp.asarray(x))))
+    for k in (1, 5, 50):
+        np.testing.assert_array_equal(_top_k_mask(torch.tensor(x), k).numpy(),
+                                      np.asarray(jsampling._top_k_mask(jnp.asarray(x), k)))
+    toks = np.random.default_rng(0).integers(0, 6, size=(5, 12)).astype(np.int32)
+    np.testing.assert_array_equal(mask_after_eos(torch.tensor(toks), 3, pad_id=-1).numpy(),
+                                  np.asarray(jsampling.mask_after_eos(jnp.asarray(toks), 3, -1)))
+
+
+def test_gumbel_noise_is_standard_gumbel():
+    g = gumbel_noise((200_000,), torch.Generator().manual_seed(0), "cpu").double()
+    assert abs(g.mean().item() - 0.5772156649) < 0.01  # Euler–Mascheroni
+    assert abs(g.var().item() - np.pi ** 2 / 6) < 0.03
+
+
+# ---------------------------------------------------------------------------
+# wrapper guards: one test per check
+# ---------------------------------------------------------------------------
+
+
+def _qkv(S=8, d=64, Hq=2, Hkv=1, dtype=torch.float32):
+    return (torch.zeros(1, Hq, S, d, dtype=dtype), torch.zeros(1, Hkv, S, d, dtype=dtype),
+            torch.zeros(1, Hkv, S, d, dtype=dtype))
+
+
+FLASH_GUARDS = {
+    "mixed_device": lambda q, k, v: (q, k.to("meta"), v),
+    "dtype_mismatch": lambda q, k, v: (q, k.double(), v),
+    "unsupported_dtype": lambda q, k, v: (q.half(), k.half(), v.half()),
+    "non_contiguous": lambda q, k, v: (q.transpose(2, 3), k, v),
+    "rank": lambda q, k, v: (q[0], k, v),
+    "kv_shape": lambda q, k, v: (q, k[:, :, :4].contiguous(), v),
+    "heads_not_multiple": lambda q, k, v: (q[:, :1].repeat(1, 3, 1, 1), k.repeat(1, 2, 1, 1),
+                                           v.repeat(1, 2, 1, 1)),
+    "head_dim_too_large": lambda q, k, v: (torch.zeros(1, 2, 8, 192), torch.zeros(1, 1, 8, 192),
+                                           torch.zeros(1, 1, 8, 192)),
+}
+
+
+@pytest.mark.parametrize("guard", sorted(FLASH_GUARDS))
+def test_flash_guards(guard):
+    with pytest.raises(ValueError):
+        ops.flash_attention(*FLASH_GUARDS[guard](*_qkv()))
+
+
+def _paged_args(G=2, bs=4, d=64):
+    return dict(q=torch.zeros(2, 1, G, d), k_pages=torch.zeros(5, bs, 1, d),
+                v_pages=torch.zeros(5, bs, 1, d),
+                block_tables=torch.ones(2, 2, dtype=torch.int32),
+                context_lens=torch.zeros(2, dtype=torch.int32))
+
+
+PAGED_GUARDS = {
+    "int64_tables": lambda a: {**a, "block_tables": a["block_tables"].long()},
+    "int64_positions": lambda a: {**a, "context_lens": a["context_lens"].long()},
+    "mixed_device": lambda a: {**a, "q": a["q"].to("meta")},
+    "dtype_mismatch": lambda a: {**a, "k_pages": a["k_pages"].to(torch.bfloat16)},
+    "non_contiguous": lambda a: {**a, "k_pages": torch.zeros(5, 4, 1, 128)[..., ::2]},
+    "page_shape": lambda a: {**a, "v_pages": torch.zeros(5, 4, 2, 64)},
+    "table_rows": lambda a: {**a, "block_tables": torch.ones(3, 2, dtype=torch.int32)},
+    "group_too_large": lambda a: _paged_args(G=9),
+    "block_too_large": lambda a: _paged_args(bs=129),
+    "head_dim_too_large": lambda a: _paged_args(d=160),
+}
+
+
+@pytest.mark.parametrize("guard", sorted(PAGED_GUARDS))
+def test_paged_guards(guard):
+    with pytest.raises(ValueError):
+        ops.paged_attention(**PAGED_GUARDS[guard](_paged_args()))
+
+
+BMA_GUARDS = {
+    "no_members": dict(logits=torch.zeros(0, 2, 5)),
+    "empty_vocab": dict(logits=torch.zeros(2, 2, 0)),
+    "rank": dict(logits=torch.zeros(2, 5)),
+    "integer_logits": dict(logits=torch.zeros(2, 2, 5, dtype=torch.int32)),
+    "non_contiguous": dict(logits=torch.zeros(2, 5, 2).transpose(1, 2)),
+    "mode": dict(logits=torch.zeros(2, 2, 5), mode="median"),
+    "negative_top_k": dict(logits=torch.zeros(2, 2, 5), top_k=-1),
+    "sampling_without_generator": dict(logits=torch.zeros(2, 2, 5), temperature=1.0),
+    "meta_device": dict(logits=torch.zeros(2, 2, 5, device="meta")),
+}
+
+
+@pytest.mark.parametrize("guard", sorted(BMA_GUARDS))
+def test_bma_guards(guard):
+    with pytest.raises(ValueError):
+        ops.fused_bma_select(**BMA_GUARDS[guard])
+
+
+# ---------------------------------------------------------------------------
+# on the card (skipped without one; chip_smoke.py is the card's check)
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc; chip_smoke.py runs these checks on the GPU")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_match_plain_versions(card):
+    q, k, v = (torch.tensor(_np(i, 1, 4, 64, 128), device=card).to(torch.bfloat16)
+               for i in (1, 2, 3))
+    k, v = k[:, :2].contiguous(), v[:, :2].contiguous()
+    torch.testing.assert_close(ops.flash_attention(q, k, v).float(),
+                               ref.attention(q, k, v).float(), atol=2e-2, rtol=0)
+    args = [torch.tensor(a, device=card) for a in _paged_case(3, B=4, Hkv=2, G=2, d=64, bs=16,
+                                                                 M=3, permute=True)]
+    torch.testing.assert_close(ops.paged_attention(*args), ref.paged_attention(*args),
+                               atol=1e-5, rtol=0)
+    logits = torch.tensor(_np(5, 3, 4, 5000), device=card)
+    gum = torch.tensor(_np(6, 4, 5000), device=card)
+    from repro_torch.kernels import bma_select as kbma
+
+    tok, logp = kbma.launch(logits, gum, mode="probs", temperature=0.7, top_k=10, chunk=512)
+    rtok, rlogp = ref.bma_select(logits, gum, mode="probs", temperature=0.7, top_k=10)
+    torch.testing.assert_close(logp, rlogp, atol=1e-5, rtol=0)
+    torch.testing.assert_close(tok, rtok, atol=0, rtol=0)
