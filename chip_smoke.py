@@ -8,20 +8,28 @@ Run from the repository root with no arguments:
 It imports torch, numpy and repro_torch only, and:
 
 1. prints the card (``nvidia-smi`` name and power limit);
-2. builds the three CUDA kernels from ``src/repro_torch/kernels/csrc`` into
+2. builds the four CUDA kernels from ``src/repro_torch/kernels/csrc`` into
    ``build/kernels/`` (one nvcc per source, in parallel);
-3. holds each kernel against its plain PyTorch version on the card at the
-   serving path's shapes, and times kernel, plain version and (flash) the
+3. holds each kernel against its plain PyTorch version on the card at its
+   main path's shapes, and times kernel, plain version and (flash) the
    PyTorch library call, beside the least time the card could take;
-4. serves the K=4-member Bayesian ensemble of qwen3-0.6b at full width
+4. the sampler: checks the fused EC-SGHMC kernel's in-kernel Philox noise
+   against N(0, 1) over the 2.38e9 elements of a qwen3-0.6b K=4 step, runs
+   fused EC-SGHMC on a Gaussian target against the exact stationary
+   oracle, and holds SMOKE training (``train.loop.run``) on the card
+   against the CPU;
+5. serves the K=4-member Bayesian ensemble of qwen3-0.6b at full width
    (random weights from seeded generators) through ``ServeEngine.run`` on
-   the paged path with all three kernels, greedily and at T=0.7/top-k 50,
-   checks every request, the launch counters and agreement with the dense
-   engine, and holds the whole engine on the card against the CPU at the
-   SMOKE size;
-5. profiles a short paged run with torch.profiler (device time by kernel
-   class, the device's busy share of the unprofiled wall clock);
-6. prints one JSON line per kernel, the card line, and the result line.
+   the paged path with the three serving kernels, greedily and at
+   T=0.7/top-k 50, checks every request, the launch counters and agreement
+   with the dense engine, holds the whole engine on the card against the
+   CPU at the SMOKE size, and profiles a short paged run with
+   torch.profiler (device time by kernel class, the device's busy share of
+   the unprofiled wall clock);
+6. trains K=4 chains of qwen3-0.6b at full width for 8 EC-SGHMC steps
+   through ``train.loop.run`` with the fused kernel, checks the metrics,
+   the launch count and the chains' spread, and profiles two more steps;
+7. prints one JSON line per kernel, the card line, and the result line.
 
 TF32 is off for matmuls and cuDNN (``allow_tf32 = False``), so f32
 products are full f32.  Any failure raises and exits non-zero; without
@@ -30,6 +38,7 @@ profile table, the full JSON result) goes to ``build/chip_smoke/``.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import pathlib
@@ -51,6 +60,7 @@ PAGED_ATOL = 2e-2
 BMA_LOGP_ATOL = 1e-4  # f32 logsumexp over 151936 terms in another order
 SLICE_FIRST_LOGP_ATOL = 1e-3  # paged vs dense engine, first token's mixture row
 SMOKE_LOGP_ATOL = 1e-4  # whole engine, card vs CPU, f32 SMOKE config
+SERVING_KERNELS = ("flash_attention", "paged_attention", "bma_select")
 
 
 def log(msg: str) -> None:
@@ -276,7 +286,7 @@ def phase_slice(torch, card):
     reset_launches()
     rep = serve(True, SamplingParams(), "paged greedy")
     torch.cuda.synchronize()
-    counts = dict(launches)
+    counts = {n: launches[n] for n in SERVING_KERNELS}
     log(f"[slice] launches on the paged greedy run: {counts}")
     if min(counts.values()) <= 0:
         raise AssertionError(f"a kernel was not launched on the main path: {counts}")
@@ -284,7 +294,7 @@ def phase_slice(torch, card):
     reset_launches()
     serve(True, SamplingParams(temperature=0.7, top_k=50), "paged T=0.7 top_k=50")
     log(f"[slice] launches on the sampled run: {dict(launches)}")
-    if min(launches.values()) <= 0:
+    if min(launches[n] for n in SERVING_KERNELS) <= 0:
         raise AssertionError(f"a kernel was not launched on the sampled run: {dict(launches)}")
 
     dense = serve(False, SamplingParams(), "dense greedy")
@@ -382,7 +392,7 @@ def phase_smoke_engine(torch):
         reset_launches()
         reps[dev] = ServeEngine(cfg, model, mem, num_slots=4, max_seq=24, paged=True,
                                 record_logprobs=True, device=dev).run(trace)
-        if dev == "cuda" and min(launches.values()) <= 0:
+        if dev == "cuda" and min(launches[n] for n in SERVING_KERNELS) <= 0:
             raise AssertionError(f"smoke engine on the card missed a kernel: {dict(launches)}")
     diff = max(float(np.abs(a.logprobs - b.logprobs).max())
                for a, b in zip(reps["cpu"].results, reps["cuda"].results))
@@ -391,6 +401,406 @@ def phase_smoke_engine(torch):
         f"logp max diff {diff:.3e} (atol {SMOKE_LOGP_ATOL})")
     if not (same and diff <= SMOKE_LOGP_ATOL):
         raise AssertionError("engine on the card disagrees with the CPU at the SMOKE size")
+
+
+# ---------------------------------------------------------------------------
+# the sampler: fused Eq. 6 kernel, Philox noise, stationary oracle, training
+# ---------------------------------------------------------------------------
+
+EC_ULP_MAX = 2  # p' against the plain version, f32 (ROADMAP Queue C if > 0)
+EC_KEY = 0x5EED5EED  # Philox key of the kernel phases
+EC_HYPER = dict(eps=1e-2, friction=1.0, mass=1.0, alpha=1.0, sigma_p=0.05)
+
+# The on-card stationary case: fused EC-SGHMC on U = (lam/2)||theta - mu||^2
+# (tests/test_stationary.py's EC_KW).  Its oracle numbers are those of
+# repro.diagnostics.ec_sghmc_stationary for this case, which imports jax;
+# tests/test_torch_stationary.py pins them to it.
+STATIONARY_CASE = dict(eps=0.1, alpha=1.0, s=1, K=4, lam=1.0, mu=1.5,
+                       ec_kw=dict(friction=1.0, center_friction=1.0, noise_convention="eq6",
+                                  center_noise_in_p=False))
+ORACLE_MEAN = 1.5
+ORACLE_VAR = 0.11326292549241243
+ORACLE_CROSS_COV = 0.050435694568097905
+STATIONARY_D = 8192
+STATIONARY_STEPS, STATIONARY_BURN = 4000, 1000
+
+SMOKE_TRAIN_ATOL = 1e-5  # card vs CPU after 3 steps: GEMMs sum in another order
+TRAIN_STEPS = 8
+TRAIN_N_DATA = 100_000  # launch/train.py's default
+
+
+def qwen_leaf_shapes(cfg, K):
+    from repro_torch.models import get_model, tree_leaves
+
+    return [(K,) + tuple(s.shape) for s in tree_leaves(get_model(cfg).param_specs(cfg))]
+
+
+def ec_bytes(K, N, itemsize=4, bits=False):
+    """Least traffic of one fused update: theta, p, g read and theta', p'
+    written per chain element (g is f32), c~ read once per element of one
+    chain, and the two bit streams in parity mode."""
+    return K * N * (4 * itemsize + 4 + (8 if bits else 0)) + N * itemsize
+
+
+def ulp_gap(torch, got, want) -> float:
+    """Largest |got - want| in f32 ULPs of want."""
+    ulp = torch.ldexp(torch.ones_like(want), torch.frexp(want).exponent - 24)
+    return ((got.float() - want).abs() / ulp).max().item()
+
+
+def phase_fused_ec(torch, ops, ref, cfg_full):
+    """The kernel against its plain version in parity mode (bits from a
+    seeded generator) at the main path's shapes, f32 and bf16 with
+    stochastic rounding; then the per-step times over qwen3-0.6b's 13
+    leaves at K = 4."""
+    import repro_torch.kernels.fused_ecsghmc as fe
+
+    g = torch.Generator(device="cuda").manual_seed(14)
+    scalars = ref.ec_scalars(EC_HYPER["eps"], EC_HYPER["friction"], 1.0 / EC_HYPER["mass"],
+                             EC_HYPER["alpha"], EC_HYPER["sigma_p"])
+    K = 4
+
+    def operands(shape, dtype):
+        theta = torch.randn(shape, generator=g, device="cuda").to(dtype)
+        p = (0.1 * torch.randn(shape, generator=g, device="cuda")).to(dtype)
+        grad = torch.randn(shape, generator=g, device="cuda")
+        c = torch.randn(shape[1:], generator=g, device="cuda").to(dtype)
+        bits = tuple(torch.randint(-2**31, 2**31 - 1, shape, generator=g, device="cuda",
+                                   dtype=torch.int32) for _ in range(2))
+        return theta, p, grad, c, bits
+
+    cases = [("embed/table", (K, 151936, 1024), torch.float32),
+             ("layers/mlp/w_gate", (K, 28, 1024, 3072), torch.float32),
+             ("ragged, 4-wide path", (K, 1000004), torch.float32),
+             ("ragged, 1-wide path", (K, 1000003), torch.float32),
+             ("embed/table", (K, 151936, 1024), torch.bfloat16),
+             ("ragged, 1-wide path", (K, 1000003), torch.bfloat16)]
+    max_err, max_ulp, rows = 0.0, 0.0, []
+    for name, shape, dtype in cases:
+        theta, p, grad, c, bits = operands(shape, dtype)
+        t_k, p_k = ops.fused_ec_update(theta, p, grad, c, bits=bits, **EC_HYPER)
+        t_r, p_r = ref.fused_ec_update(theta, p, grad, c, *bits, scalars=scalars,
+                                       stochastic_round=True)
+        torch.cuda.synchronize()
+        err = max((t_k.float() - t_r.float()).abs().max().item(),
+                  (p_k.float() - p_r.float()).abs().max().item())
+        if dtype == torch.float32:
+            if not torch.equal(t_k, t_r):
+                raise AssertionError(f"fused_ec {name}: theta' is not bitwise equal to the plain version")
+            gap = ulp_gap(torch, p_k, p_r)
+            same = torch.equal(p_k, p_r)
+            if gap > EC_ULP_MAX:
+                raise AssertionError(f"fused_ec {name}: p' differs by {gap} ULP > {EC_ULP_MAX}")
+            max_err, max_ulp = max(max_err, err), max(max_ulp, gap)
+            log(f"[fused_ec] {name} {tuple(shape)} f32: theta' bitwise equal, p' bitwise "
+                f"equal={same} (max gap {gap:.0f} ULP, max abs err {err:.3e})")
+            rows.append(dict(name=name, shape=shape, dtype="f32", err=err, ulp=gap))
+        else:
+            shares = []
+            for a, b in ((t_k, t_r), (p_k, p_r)):
+                ai, bi = a.view(torch.int16).int(), b.view(torch.int16).int()
+                shares.append(((ai == bi).float().mean().item(),
+                               ((ai - bi).abs() <= 1).float().mean().item()))
+            log(f"[fused_ec] {name} {tuple(shape)} bf16, stochastic rounding: share equal "
+                f"theta' {shares[0][0]:.9f} p' {shares[1][0]:.9f}; within 1 bf16 ULP "
+                f"{shares[0][1]:.9f} / {shares[1][1]:.9f}")
+            if min(s[1] for s in shares) < 1.0 - 1e-6:
+                raise AssertionError(f"fused_ec {name} bf16: more than 1e-6 of the elements "
+                                     "differ by more than 1 bf16 ULP")
+            rows.append(dict(name=name, shape=shape, dtype="bf16", shares=shares))
+        del theta, p, grad, c, bits, t_k, p_k, t_r, p_r
+        torch.cuda.empty_cache()
+
+    # per-step times at the main path: 13 leaves of qwen3-0.6b, K = 4, f32
+    ms = parity_ms = plain_ms = 0.0
+    nbytes = parity_bytes = 0
+    shapes = qwen_leaf_shapes(cfg_full, K)
+    for shape in shapes:
+        theta, p, grad, c, bits = operands(shape, torch.float32)
+        N = theta.numel() // K
+        t_out = torch.empty_like(theta)
+        run = lambda b1, b2: fe.launch(theta, p, grad, c, b1, b2, t_out, p, K=K, N=N,
+                                       seed=EC_KEY, leaf=0, step=0, scalars=scalars,
+                                       stochastic_round=True)
+        ms += time_ms(torch, lambda: run(None, None))
+        parity_ms += time_ms(torch, lambda: run(*bits))
+        plain_ms += time_ms(torch, lambda: ref.fused_ec_update(
+            theta, p, grad, c, *bits, scalars=scalars, stochastic_round=True), reps=5, warmup=1)
+        nbytes += ec_bytes(K, N)
+        parity_bytes += ec_bytes(K, N, bits=True)
+        del theta, p, grad, c, bits, t_out
+        torch.cuda.empty_cache()
+    b_ms, b_by = bound(nbytes, 0.0, F32_FLOPS_PER_S)
+    pb_ms, _ = bound(parity_bytes, 0.0, F32_FLOPS_PER_S)
+    log(f"[fused_ec] one step of qwen3-0.6b K={K}, {len(shapes)} leaves, f32: kernel {ms:.4f} ms "
+        f"(Philox mode), bound {b_ms:.4f} ms ({nbytes / 1e9:.2f} GB, {b_by}); parity mode "
+        f"{parity_ms:.4f} ms, bound {pb_ms:.4f} ms ({parity_bytes / 1e9:.2f} GB); plain version "
+        f"{plain_ms:.4f} ms (bits given, median of 5); library: none")
+    return dict(err=max_err, ulp=max_ulp, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None, parity_ms=parity_ms, parity_bound_ms=pb_ms, bytes=nbytes,
+                rows=rows)
+
+
+def phase_philox(torch, ops, ref, cfg_full):
+    """Production mode with theta = p = g = c~ = 0, decay = 1 and sigma_p = 1
+    makes p' the noise itself: its mean, variance and fourth moment over all
+    2.38e9 elements of qwen3-0.6b at K = 4 against N(0, 1), within 6 sigma of
+    their Monte-Carlo error.  The stream repeats for the same (key, leaf,
+    step), changes with the step, and equals the plain version's bits."""
+    hyper = dict(eps=0.0, friction=0.0, mass=1.0, alpha=0.0, sigma_p=1.0)
+    K = 4
+    s1 = s2 = s4 = 0.0
+    n = 0
+    for i, shape in enumerate(qwen_leaf_shapes(cfg_full, K)):
+        z = torch.zeros(shape, device="cuda")
+        c = torch.zeros(shape[1:], device="cuda")
+        _, x = ops.fused_ec_update(z, z, z, c, seed=EC_KEY, leaf=i, step=7, **hyper)
+        s1 += torch.sum(x, dtype=torch.float64).item()
+        x2 = x * x
+        s2 += torch.sum(x2, dtype=torch.float64).item()
+        s4 += torch.sum(x2 * x2, dtype=torch.float64).item()
+        n += x.numel()
+        del z, c, x, x2
+    torch.cuda.empty_cache()
+    m1, m2, m4 = s1 / n, s2 / n, s4 / n
+    tol = [6.0 * math.sqrt(v / n) for v in (1.0, 2.0, 96.0)]  # Var of x, x^2, x^4 under N(0,1)
+    log(f"[philox] {n} draws: mean {m1:.3e} (tol {tol[0]:.2e}), E[x^2] {m2:.7f} (1, tol "
+        f"{tol[1]:.2e}), E[x^4] {m4:.6f} (3, tol {tol[2]:.2e})")
+    if not (abs(m1) < tol[0] and abs(m2 - 1) < tol[1] and abs(m4 - 3) < tol[2]):
+        raise AssertionError("Philox noise moments are off N(0, 1)")
+    shape = (K, 250001)  # odd N: the 1-wide path, odd element indices
+    z = torch.zeros(shape, device="cuda")
+    c = torch.zeros(shape[1:], device="cuda")
+    draw = lambda step: ops.fused_ec_update(z, z, z, c, seed=EC_KEY, leaf=3, step=step, **hyper)[1]
+    a, b, a2 = draw(5), draw(6), draw(5)
+    h1, h2 = ref.philox_bits(EC_KEY, 3, 5, z.numel())
+    bits = tuple(torch.from_numpy(h.view(np.int32)).cuda().view(shape) for h in (h1, h2))
+    plain = ops.fused_ec_update(z, z, z, c, bits=bits, **hyper)[1]
+    z4 = torch.zeros((K, 250000), device="cuda")
+    wide = ops.fused_ec_update(z4, z4, z4, z4[0], seed=EC_KEY, leaf=3, step=5, **hyper)[1]
+    torch.cuda.synchronize()
+    same_frac = (a == b).float().mean().item()
+    log(f"[philox] same (key, leaf, step) repeats: {torch.equal(a, a2)}; next step shares "
+        f"{same_frac:.2e} of values; kernel == plain Philox bits: {torch.equal(a, plain)}; "
+        f"4-wide == 1-wide path on the shared elements: "
+        f"{torch.equal(wide[0], a[0, :250000])}")
+    if not (torch.equal(a, a2) and same_frac < 1e-3 and torch.equal(a, plain)
+            and torch.equal(wide[0], a[0, :250000])):
+        raise AssertionError("Philox stream check failed")
+    return dict(n=n, m1=m1, m2=m2, m4=m4)
+
+
+def phase_stationary(torch):
+    """Fused EC-SGHMC with in-kernel Philox noise on the Gaussian target,
+    through the port's rollout, against the exact oracle at 3 sigma.
+
+    The mean is the pooled mean, with the band sized by the conservative
+    (chain-mean) ESS of theta, as in tests/test_stationary.py.  The
+    variance and cross-covariance are taken about the oracle's mean: about
+    the empirical mean they are biased low by the variance of that mean,
+    ~1/ESS per dimension (~1.3% here), which at D = 8192 is several times
+    the band.  Their bands come from the conservative ESS of their own
+    series (squared deviations, products of two chains' deviations): the
+    chains are underdamped, so theta's ESS overstates them."""
+    from repro_torch import core
+    from repro_torch import diagnostics as diag
+    from repro_torch.core import rng
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.run import rollout
+
+    c = STATIONARY_CASE
+    K, D, mu, lam = c["K"], STATIONARY_D, c["mu"], c["lam"]
+    sampler = core.ec_sghmc(step_size=c["eps"], alpha=c["alpha"], sync_every=c["s"], fused=True,
+                            **c["ec_kw"])
+    p0 = torch.full((K, D), mu + 1.0, device="cuda")
+    reset_launches()
+    t0 = time.perf_counter()
+    res = rollout(sampler, lambda th: lam * (th - mu), p0, num_steps=STATIONARY_STEPS,
+                  keys=rng.split(rng.key(31), STATIONARY_STEPS), moments=True, chunk_steps=1000)
+    wall = time.perf_counter() - t0
+    if launches["fused_ec_update"] != STATIONARY_STEPS:
+        raise AssertionError(f"stationary run launched the kernel {launches['fused_ec_update']} times")
+    traj = res.trace.cpu().numpy()
+    if not np.allclose(diag.welford_mean(res.moments).cpu().numpy(), traj.mean(0), rtol=2e-4, atol=2e-4):
+        raise AssertionError("in-carry Welford mean disagrees with the trajectory")
+    traj = np.moveaxis(traj[STATIONARY_BURN:], 1, 0).astype(np.float64)  # (K, T, D)
+    emp_mean = traj.mean()
+    ess = float(np.sum(diag.coupled_ess_nd(traj)))
+    mean_tol = 3.0 * math.sqrt(ORACLE_VAR / ess) + 1e-4
+    dev = traj - ORACLE_MEAN
+    checks = [("mean", emp_mean, ORACLE_MEAN, mean_tol, ess)]
+    for name, series, want in (
+            ("var", np.mean(dev * dev, axis=0), ORACLE_VAR),
+            ("cross-cov", np.mean([dev[i] * dev[j] for i in range(K) for j in range(i + 1, K)],
+                                  axis=0), ORACLE_CROSS_COV)):
+        ess_s = float(np.sum(diag.coupled_ess_nd(series[None])))
+        checks.append((name, series.mean(), want, 3.0 * math.sqrt(series.var() / ess_s), ess_s))
+    log(f"[stationary] fused EC-SGHMC K={K} D={D} eps={c['eps']} alpha={c['alpha']} s={c['s']}, "
+        f"{STATIONARY_STEPS} steps (burn-in {STATIONARY_BURN}) in {wall:.2f} s: "
+        + "; ".join(f"{n} {got:.6f} vs oracle {want:.6f} (3 sigma {tol:.2e}, ESS {e:.0f})"
+                    for n, got, want, tol, e in checks))
+    bad = [n for n, got, want, tol, _ in checks if not abs(got - want) < tol]
+    if bad:
+        raise AssertionError(f"on-card stationary {bad} miss the oracle")
+
+
+def phase_smoke_train(torch):
+    """SMOKE training, card against CPU: the same params, batches, bits and
+    center noise through train.loop.run with the fused sampler, 3 steps."""
+    from repro_torch import configs
+    from repro_torch.data import chain_batches, synthetic_token_stream
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.launch import default_sampler
+    from repro_torch.models import get_model, tree_leaves, tree_map
+    from repro_torch.train import LoopConfig, loop, make_train_step
+
+    cfg = configs.get_config("qwen3-0.6b", smoke=True)
+    model = get_model(cfg)
+    K, steps = 4, 3
+    members = stacked_members(torch, cfg, model, K, "cpu", seed0=200)
+    stream = synthetic_token_stream(cfg.vocab_size, seed=5, device="cpu")
+    batches = [chain_batches(stream, t, K, 2, 16) for t in range(steps)]
+    gen = torch.Generator().manual_seed(77)
+    n_leaves = len(tree_leaves(members))
+    noise = []
+    for _ in range(steps):
+        bits = tree_map(lambda x: tuple(torch.randint(-2**31, 2**31 - 1, x.shape, generator=gen,
+                                                      dtype=torch.int32) for _ in range(2)), members)
+        r = tree_map(lambda x: torch.randn(x.shape[1:], generator=gen), members)
+        noise.append((bits, r))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        to = lambda t: tree_map(lambda x: x.to(dev, copy=True), t)  # the run updates in place
+        samp = default_sampler(cfg, "qwen3-0.6b", K, sync_every=2, fused=True, step_size=1e-3)
+        params = to(members)
+        noise_fn = lambda step: {"p": tree_map(lambda b: tuple(x.to(dev) for x in b), noise[step][0]),
+                                 "r": to(noise[step][1])}
+        step = make_train_step(cfg, model, samp, 1000, noise_fn=noise_fn)
+        reset_launches()
+        p, s, h = loop.run(step, params, samp.init(params), lambda t: to(batches[t]),
+                           LoopConfig(num_steps=steps, log_every=1), num_chains=K, sampler=samp)
+        if dev == "cuda" and launches["fused_ec_update"] != steps * n_leaves:
+            raise AssertionError(f"SMOKE training launched fused_ec_update "
+                                 f"{launches['fused_ec_update']} times, not {steps * n_leaves}")
+        out[dev] = (p, s, h)
+    diffs = {}
+    for name, get in (("params", lambda o: o[0]), ("momentum", lambda o: o[1].momentum),
+                      ("center", lambda o: o[1].center)):
+        diffs[name] = max((a.cpu() - b).abs().max().item()
+                          for a, b in zip(tree_leaves(get(out["cuda"])), tree_leaves(get(out["cpu"]))))
+    nll = [(a["nll_per_token"], b["nll_per_token"]) for a, b in zip(out["cuda"][2], out["cpu"][2])]
+    log(f"[smoke-train] SMOKE f32 K={K}, {steps} steps, fused, parity noise: card vs CPU max diff "
+        f"params {diffs['params']:.3e}, momentum {diffs['momentum']:.3e}, center "
+        f"{diffs['center']:.3e} (atol {SMOKE_TRAIN_ATOL}); nll per step card/CPU {nll}")
+    if max(diffs.values()) > SMOKE_TRAIN_ATOL:
+        raise AssertionError("SMOKE training on the card disagrees with the CPU")
+
+
+TRAIN_CLASSES = (  # (label, substrings of a device kernel's name), first match wins
+    ("fused EC kernel", ("ec_update",)),
+    ("GEMM", ("gemm", "nvjet", "cutlass", "sm90_xmma", "cublas", "splitKreduce")),
+    ("copies and casts", ("copy",)),
+)
+
+
+def phase_train(torch, card):
+    """qwen3-0.6b at full width, K = 4 chains, 8 EC-SGHMC steps through
+    train.loop.run with the fused sampler in production mode."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import configs
+    from repro_torch.data import chain_batches, synthetic_token_stream
+    from repro_torch.diagnostics import chain_center_rms
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.launch import default_sampler
+    from repro_torch.models import get_model, tree_leaves
+    from repro_torch.train import LoopConfig, loop, make_train_step
+
+    cfg = configs.get_config("qwen3-0.6b")
+    model = get_model(cfg)
+    K = configs.EC_CHAINS["qwen3-0.6b"]
+    log(f"[train] device memory before the phase: {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    torch.cuda.reset_peak_memory_stats()
+    params = stacked_members(torch, cfg, model, K, "cuda", seed0=300)
+    samp = default_sampler(cfg, "qwen3-0.6b", K, sync_every=4, fused=True, step_size=1e-6)
+    state = samp.init(params)
+    stream = synthetic_token_stream(cfg.vocab_size, seed=0, device="cuda")
+    batch_fn = lambda t: chain_batches(stream, t, K, 4, 64)
+    step = make_train_step(cfg, model, samp, TRAIN_N_DATA)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    params, state, hist = loop.run(step, params, state, batch_fn,
+                                   LoopConfig(num_steps=TRAIN_STEPS, log_every=1, seed=0),
+                                   num_chains=K, sampler=samp)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(launches)
+    peak = torch.cuda.max_memory_allocated()
+    n_leaves = len(tree_leaves(params))
+    for m in hist:
+        if not all(math.isfinite(v) for v in m.values()):
+            raise AssertionError(f"non-finite metric or stat at step {m['step']}: {m}")
+    nll0 = hist[0]["nll_per_token"]
+    walls = [hist[0]["wall_s"]] + [b["wall_s"] - a["wall_s"] for a, b in zip(hist, hist[1:])]
+    steady = (hist[-1]["wall_s"] - hist[0]["wall_s"]) / max(len(hist) - 1, 1)
+    rms = chain_center_rms(params, state.center).item()
+    mom = sum(torch.sum(x.float() ** 2).item() for x in tree_leaves(state.momentum)) ** 0.5
+    log(f"[train] qwen3-0.6b full width, K={K}, batch 4 x 64 per chain, sync every 4, eps 1e-6, "
+        f"{TRAIN_STEPS} steps in {wall:.2f} s; per step {['%.3f' % w for w in walls]} s; steady "
+        f"{steady:.3f} s/step = {1 / max(steady, 1e-9):.3f} steps/s; peak device memory "
+        f"{peak / 2**30:.2f} GiB [{card}]")
+    log(f"[train] nll per token by step {[round(m['nll_per_token'], 4) for m in hist]} "
+        f"(ln V = {math.log(cfg.vocab_size):.3f}); chain_center_rms by step "
+        f"{[float('%.4g' % m['chain_center_rms']) for m in hist]}; momentum norm {mom:.4g}; "
+        f"launches {counts}")
+    if abs(nll0 - math.log(cfg.vocab_size)) > 1.5:
+        raise AssertionError(f"first step's nll {nll0} is not within 1.5 of ln V")
+    if counts["fused_ec_update"] != TRAIN_STEPS * n_leaves:
+        raise AssertionError(f"fused_ec_update launched {counts['fused_ec_update']} times, "
+                             f"not {TRAIN_STEPS * n_leaves}")
+    if not (mom > 0 and math.isfinite(rms) and rms > 0
+            and all(m["chain_center_rms"] > 0 for m in hist[3:])):
+        raise AssertionError("momentum or chain spread is zero after the first sync")
+
+    # where a step's time goes: 2 more steps under the profiler, against
+    # the wall clock of 2 unprofiled steps
+    def two_steps(start):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loop.run(step, params, state, lambda s: batch_fn(start + s),
+                 LoopConfig(num_steps=2, log_every=0, seed=1), num_chains=K)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    wall2 = two_steps(100)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        two_steps(200)
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    device_us = sum(e.self_device_time_total for e in kernels)
+    (OUT / "train_profile.txt").write_text(
+        prof.key_averages().table(sort_by="self_device_time_total", row_limit=60))
+    split = {}
+    if device_us > 0:
+        for e in kernels:
+            label = next((lab for lab, keys in TRAIN_CLASSES if any(k in e.key for k in keys)),
+                         "other elementwise and reductions")
+            split[label] = split.get(label, 0.0) + e.self_device_time_total
+        log(f"[train-profile] 2 steps: wall {wall2:.3f} s without the profiler, device kernels "
+            f"{device_us / 1e6:.3f} s = {100 * device_us / 1e6 / wall2:.1f}% busy, "
+            f"{sum(e.count for e in kernels)} kernels [{card}]")
+        for lab, us in sorted(split.items(), key=lambda kv: -kv[1]):
+            log(f"[train-profile]   {100 * us / device_us:5.1f}%  {us / 1e3:9.3f} ms  {lab}")
+        for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+            log(f"[train-profile]   {100 * e.self_device_time_total / device_us:5.1f}%  "
+                f"{e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<6d} {e.key[:80]}")
+    else:
+        log("[train-profile] torch.profiler recorded no device time: busy share not measured")
+    del params, state
+    torch.cuda.empty_cache()
+    return counts, dict(wall=wall, steady=steady, peak=peak, nll0=nll0, device_us=device_us,
+                        wall2=wall2, split=split)
 
 
 def main() -> int:
@@ -417,12 +827,23 @@ def main() -> int:
         "\n".join(f"=== {n} ===\n{t}" for n, t in _build.build_log.items()))
     log(f"[build] {len(_build.SOURCES)} kernels built in {secs:.2f} s into {_build.BUILD_DIR}")
 
+    from repro_torch import configs
+
+    qwen = configs.get_config("qwen3-0.6b")
     flash = phase_flash(torch, ops, ref, F)
     paged = phase_paged(torch, ops, ref)
     bma = phase_bma(torch, ops, ref)
+    fused = phase_fused_ec(torch, ops, ref, qwen)
+    phase_philox(torch, ops, ref, qwen)
+    phase_stationary(torch)
     phase_smoke_engine(torch)
+    phase_smoke_train(torch)
     counts, per_tick = phase_slice(torch, card)
     log(f"[slice] launches per decode tick: {per_tick} (flash: once per layer per member per admit)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_counts, train = phase_train(torch, card)
+    counts["fused_ec_update"] = train_counts["fused_ec_update"]
 
     f128 = next(r for r in flash if r["S"] == 128)
     bg = next(r for r in bma if r["mode"] == "probs" and r["T"] == 0.0)
@@ -433,6 +854,8 @@ def main() -> int:
          "src/repro/kernels/paged_attention.py:37", paged),
         ("bma_select", "src/repro_torch/kernels/csrc/bma_select.cu",
          "src/repro/kernels/bma_select.py:42", bg),
+        ("fused_ec_update", "src/repro_torch/kernels/csrc/fused_ecsghmc.cu",
+         "src/repro/kernels/fused_ecsghmc.py:54", fused),
     ]
     kernels = [
         {"name": n, "route": "cuda", "source": src, "replaces": rep, "launches": counts[n],
@@ -441,8 +864,9 @@ def main() -> int:
         for n, src, rep, r in entries
     ]
     (OUT / "result.json").write_text(json.dumps({"card": card, "kernels": kernels,
-                                                  "flash": flash, "paged": paged, "bma": bma},
-                                                 indent=1))
+                                                  "flash": flash, "paged": paged, "bma": bma,
+                                                  "fused_ec": fused, "train": train},
+                                                 indent=1, default=str))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -3,8 +3,10 @@ with elastic coupling).  It imports torch, never jax, and nothing of the
 reference package; its subpackages mirror the reference's layout.
 
 Ported so far: serving the K-member posterior-predictive ensemble of the
-dense models (``serve.engine.ServeEngine``), with hand-written Hopper
-kernels for flash prefill attention, paged decode attention and the fused
-BMA mixture + token selection (``kernels``).  Entry points run on CUDA
-unless the caller passes ``device="cpu"``.
+dense models (``serve.engine.ServeEngine``), and drawing it: elastically
+coupled SGHMC chains (``core.ec_sghmc``) run by the chunked executor
+(``run``) and the training loop (``train``).  Hand-written Hopper kernels
+(``kernels``) do flash prefill attention, paged decode attention, the
+fused BMA mixture + token selection and the fused Eq. 6 chain update.
+Entry points run on CUDA unless the caller passes ``device="cpu"``.
 """

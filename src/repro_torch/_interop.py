@@ -8,6 +8,12 @@ its dtype name (no import of its provider) and reinterprets its bits;
 as bfloat16 on the other side.  ``torch_dtype`` maps the dtypes that
 configs carry (jnp types, numpy dtypes or names) to torch dtypes, and
 ``config_from`` copies a reference ModelConfig into the port's.
+
+Sampler states cross field by field: ``state_from_numpy`` turns a
+reference ``SGHMCState``/``ECSGHMCState`` whose leaves are numpy arrays
+(``jax.tree.map(np.asarray, state)``) into the port's state of the same
+name, with a host-int ``step``; ``state_to_numpy`` goes back to a dict of
+numpy trees.  A chain-stacked parameter tree crosses like any other tree.
 """
 from __future__ import annotations
 
@@ -16,7 +22,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.models.common import LayerKind, ModelConfig
+from repro_torch.models.common import LayerKind, ModelConfig, tree_map
 
 _DTYPES = {
     "float32": torch.float32,
@@ -94,3 +100,27 @@ def config_from(ref_cfg) -> ModelConfig:
             val = tuple(LayerKind(p.kind, p.window, p.moe) for p in val)
         kw[f.name] = val
     return ModelConfig(**kw)
+
+
+def state_from_numpy(ref_state, device="cpu"):
+    """A reference sampler state (NamedTuple of numpy trees) -> the port's
+    state class of the same name, tensors on ``device``."""
+    from repro_torch.core.ec_sghmc import ECSGHMCState
+    from repro_torch.core.sghmc import SGHMCState
+
+    classes = {"ECSGHMCState": ECSGHMCState, "SGHMCState": SGHMCState}
+    name = type(ref_state).__name__
+    if name not in classes:
+        raise ValueError(f"no port state for {name}")
+    cls = classes[name]
+    kw = {}
+    for f in cls._fields:
+        val = getattr(ref_state, f)
+        kw[f] = (int(np.asarray(val)) if f == "step"
+                 else tree_map(lambda x: x.to(device), tree_from_numpy(val)))
+    return cls(**kw)
+
+
+def state_to_numpy(state) -> dict:
+    """A port sampler state -> {field: numpy tree}, ``step`` an int."""
+    return {f: (int(v) if f == "step" else tree_to_numpy(v)) for f, v in state._asdict().items()}

@@ -1,8 +1,9 @@
-"""Cross-chain / ensemble dispersion summaries (the part the serving
-registry's promotion gate needs).  Every function reduces a chain-stacked
-nested dict (leading axis K on every leaf) to a handful of scalars."""
+"""Cross-chain / ensemble dispersion summaries.  Every function reduces a
+chain-stacked nested dict (leading axis K on every leaf) to a handful of
+scalars."""
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.models.common import tree_leaves
@@ -36,3 +37,24 @@ def ensemble_spread_device(params_stack) -> dict:
         "mean_param_norm": torch.mean(norms),
         "rel_spread": torch.sqrt(spread) / torch.clamp(rms_param, min=1e-12),
     }
+
+
+def chain_center_rms(tree, center) -> torch.Tensor:
+    """RMS distance of chains from a center tree (leaves without the chain
+    axis): sqrt(mean_i,elem (θⁱ - c)²), the elastic-coupling energy scale."""
+    num, den = None, 0
+    for leaf, c in zip(tree_leaves(tree), tree_leaves(center)):
+        d = leaf.float() - c.float()[None]
+        s = torch.sum(d * d)
+        num = s if num is None else num + s
+        den += int(d.numel())
+    return torch.sqrt(num / max(den, 1))
+
+
+def pooled_moments(trajectory) -> tuple[np.ndarray, np.ndarray]:
+    """(mean, var) per trailing dimension of a (chains, samples, *dims)
+    trajectory, pooled over chains and samples: the estimate the stationary
+    battery compares against the oracle."""
+    x = np.asarray(trajectory, np.float64)
+    flat = x.reshape(-1, *x.shape[2:])
+    return flat.mean(axis=0), flat.var(axis=0)

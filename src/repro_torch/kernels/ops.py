@@ -11,12 +11,13 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from . import ref
 
-launches = {"flash_attention": 0, "paged_attention": 0, "bma_select": 0}
+launches = {"flash_attention": 0, "paged_attention": 0, "bma_select": 0, "fused_ec_update": 0}
 
 BMA_CHUNK = 4096  # vocabulary elements per bma_select block
 _ATTN_DTYPES = (torch.float32, torch.bfloat16)
@@ -170,3 +171,106 @@ def fused_bma_select(logits, generator=None, *, mode="probs", temperature=0.0, t
                            top_k=int(top_k), chunk=BMA_CHUNK)
     launches["bma_select"] += 1
     return tok, logp
+
+
+# --- fused EC-SGHMC update ---------------------------------------------------
+
+_EC_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _chain_layout(theta, c_tilde):
+    """(K, N): chains and elements per chain.  c̃ is shaped like one chain
+    (``theta.shape[1:]``) or like theta itself (K = 1)."""
+    if c_tilde.shape == theta.shape:
+        return 1, theta.numel()
+    if theta.ndim >= 1 and c_tilde.shape == theta.shape[1:]:
+        return int(theta.shape[0]), c_tilde.numel()
+    raise ValueError(f"c_tilde shape {tuple(c_tilde.shape)} is neither theta's "
+                     f"{tuple(theta.shape)} nor one chain of it")
+
+
+def fused_ec_update(theta, p, g, c_tilde, *, eps, friction, mass, alpha, sigma_p,
+                    stochastic_round=True, bits=None, seed=None, leaf=0, step=0, p_out=None):
+    """One leaf's fused Eq. 6 update.  Returns (theta', p') in theta's and
+    p's dtypes.
+
+    Noise: ``bits=(bits1, bits2)``, int32 tensors of uint32 bit patterns
+    with at least ``theta.numel()`` elements in the leaf's flat order
+    (parity mode), or ``seed`` (a 64-bit key) for Philox bits countered by
+    ``(leaf, step, element)`` (production mode; on the CPU the plain
+    version computes the same bits).  ``p_out`` (p itself, for an in-place
+    update) receives p'."""
+    on_card = _on_card(theta, p, g, c_tilde)
+    if (bits is None) == (seed is None):
+        raise ValueError("pass exactly one of bits= (parity mode) or seed= (Philox mode)")
+    if theta.dtype not in _EC_DTYPES or p.dtype != theta.dtype or c_tilde.dtype != theta.dtype:
+        raise ValueError(f"theta, p and c_tilde must share one dtype of f32 or bf16, got "
+                         f"{theta.dtype}, {p.dtype}, {c_tilde.dtype}")
+    if p.shape != theta.shape or g.shape != theta.shape:
+        raise ValueError(f"p {tuple(p.shape)} and g {tuple(g.shape)} must be shaped like "
+                         f"theta {tuple(theta.shape)}")
+    K, N = _chain_layout(theta, c_tilde)
+    g = g.float()
+    _require_contiguous(theta=theta, p=p, g=g, c_tilde=c_tilde)
+    n = theta.numel()
+    if p_out is not None and (p_out.shape != p.shape or p_out.dtype != p.dtype
+                              or p_out.device != p.device or not p_out.is_contiguous()):
+        raise ValueError("p_out must be a contiguous tensor like p")
+    if bits is not None:
+        b1, b2 = bits
+        for b in (b1, b2):
+            if b.dtype != torch.int32 or b.numel() < n or b.device != theta.device:
+                raise ValueError(f"bits must be int32 tensors of >= {n} elements on {theta.device}")
+        b1, b2 = b1.reshape(-1)[:n].contiguous(), b2.reshape(-1)[:n].contiguous()
+    elif not 0 <= int(seed) < 1 << 64 or (n + 1) // 2 > 1 << 32:
+        raise ValueError("seed must be a 64-bit key and the leaf under 2^33 elements")
+    scalars = ref.ec_scalars(eps, friction, 1.0 / mass, alpha, sigma_p)
+    if n == 0:
+        return theta.clone(), (p_out if p_out is not None else p.clone())
+    if not on_card:
+        if bits is None:
+            h1, h2 = ref.philox_bits(int(seed), int(leaf), int(step), n)
+            b1 = torch.from_numpy(h1.view(np.int32))
+            b2 = torch.from_numpy(h2.view(np.int32))
+        shape = theta.shape
+        t_new, p_new = ref.fused_ec_update(theta, p, g, c_tilde, b1.view(shape), b2.view(shape),
+                                           scalars=scalars, stochastic_round=stochastic_round)
+        if p_out is not None:
+            p_new = p_out.copy_(p_new)
+        return t_new, p_new
+    from . import fused_ecsghmc as _fe
+
+    t_new = torch.empty_like(theta)
+    p_new = p_out if p_out is not None else torch.empty_like(p)
+    _fe.launch(theta, p, g, c_tilde, b1 if bits is not None else None,
+               b2 if bits is not None else None, t_new, p_new, K=K, N=N,
+               seed=0 if seed is None else int(seed), leaf=int(leaf), step=int(step),
+               scalars=scalars, stochastic_round=stochastic_round)
+    launches["fused_ec_update"] += 1
+    return t_new, p_new
+
+
+def fused_ec_update_tree(params, momentum, grads, center_stale, *, bits=None, seed=None,
+                         step=0, **hyper):
+    """Tree-level fused update, one kernel launch per leaf in flatten order,
+    writing each p' over its p.  ``bits``: a tree of (bits1, bits2) pairs
+    (parity mode), or ``seed`` for Philox noise with the leaf's flatten
+    index as its ``leaf``.  Returns the momentum tree.  Each leaf's theta'
+    is written by the kernel and dropped after its launch: the one caller,
+    EC-SGHMC, takes the position step from its ``updates``, as the
+    reference does, so only one leaf's theta' is ever held."""
+    from repro_torch.models.common import tree_leaves
+
+    leaves_b = _pair_leaves(bits) if bits is not None else [None] * len(tree_leaves(params))
+    for i, (t, p, g, c, b) in enumerate(zip(tree_leaves(params), tree_leaves(momentum),
+                                            tree_leaves(grads), tree_leaves(center_stale),
+                                            leaves_b)):
+        fused_ec_update(t, p, g, c, bits=b, seed=seed, leaf=i, step=step, p_out=p, **hyper)
+    return momentum
+
+
+def _pair_leaves(tree):
+    """Leaves of a tree whose leaves are (bits1, bits2) pairs."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in _pair_leaves(tree[k])]
+    return [tree]

@@ -5,6 +5,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 NEG_INF = -1e30
@@ -92,3 +93,103 @@ def bma_select(logits, gumbel, *, mode, temperature, top_k):
         sel = _top_k_mask(sel, top_k)
     tok = torch.argmax(sel + gumbel.float(), dim=-1).to(torch.int32)
     return tok, logp
+
+
+# --- fused EC-SGHMC update ---------------------------------------------------
+
+_F32 = np.float32
+_M32 = np.uint64(0xFFFFFFFF)
+PHILOX_M = (np.uint64(0xD2511F53), np.uint64(0xCD9E8D57))
+PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+SR_SALT = 0x9E3779B9  # XORed into the bits of p's stochastic rounding
+
+
+def ec_scalars(eps, friction, minv, alpha, sigma_p):
+    """The five scalars of the Eq. 6 update, (eps*M^-1, 1 - eps*V*M^-1, eps,
+    eps*alpha, sigma_p), formed in float32 exactly as the reference forms
+    them (each Python constant rounded to f32, then f32 products).  The
+    kernel's arguments, this module's plain version and
+    ``core.ec_sghmc.p_step`` all take their scalars from here.  Returned as
+    Python floats that hold f32 values exactly."""
+    e = _F32(eps)
+    return (
+        float(e * _F32(minv)),
+        float(_F32(1.0) - e * _F32(friction) * _F32(minv)),
+        float(e),
+        float(e * _F32(alpha)),
+        float(_F32(sigma_p)),
+    )
+
+
+def philox_bits(seed: int, leaf: int, step: int, n: int):
+    """The production-mode noise bits of the fused kernel for the first
+    ``n`` elements of a leaf, as two uint32 numpy arrays.  Philox-4x32-10
+    with key (seed lo, seed hi) and counter (element // 2, leaf, step lo,
+    step hi); element 2q takes words (0, 1) of block q and element 2q+1
+    words (2, 3)."""
+    m = (n + 1) // 2
+    if m > 1 << 32:
+        raise ValueError(f"leaf of {n} elements is too large for the Philox counter")
+    k0, k1 = seed & 0xFFFFFFFF, (seed >> 32) & 0xFFFFFFFF
+    keys = []
+    for _ in range(10):
+        keys.append((np.uint64(k0), np.uint64(k1)))
+        k0, k1 = (k0 + PHILOX_W[0]) & 0xFFFFFFFF, (k1 + PHILOX_W[1]) & 0xFFFFFFFF
+    s32 = np.uint64(32)
+    c0 = np.arange(m, dtype=np.uint64)
+    c1, c2, c3 = np.uint64(leaf & 0xFFFFFFFF), np.uint64(step & 0xFFFFFFFF), np.uint64((step >> 32) & 0xFFFFFFFF)
+    for kk0, kk1 in keys:
+        p0, p1 = PHILOX_M[0] * c0, PHILOX_M[1] * c2
+        c0, c1, c2, c3 = (p1 >> s32) ^ c1 ^ kk0, p1 & _M32, (p0 >> s32) ^ c3 ^ kk1, p0 & _M32
+    bits1, bits2 = np.empty(2 * m, np.uint32), np.empty(2 * m, np.uint32)
+    bits1[0::2], bits1[1::2], bits2[0::2], bits2[1::2] = c0, c2, c1, c3
+    return bits1[:n], bits2[:n]
+
+
+def _u32(bits):
+    """int32 tensor of uint32 bit patterns -> int64 tensor of their values."""
+    return bits.to(torch.int64) & 0xFFFFFFFF
+
+
+def _bits_to_unit(bits):
+    """uint32 -> uniform (0, 1) f32 from the top 24 bits."""
+    return (_u32(bits) >> 8).float() * (1.0 / (1 << 24)) + (0.5 / (1 << 24))
+
+
+def box_muller(bits1, bits2):
+    """Standard normal f32 from two int32 tensors of uint32 bits."""
+    u1 = _bits_to_unit(bits1)
+    u2 = _bits_to_unit(bits2)
+    return torch.sqrt(-2.0 * torch.log(u1)) * torch.cos((2.0 * math.pi) * u2)
+
+
+def stochastic_round_bf16(x, bits):
+    """f32 -> bf16, rounding up with probability equal to the dropped
+    fraction: add the low 16 of ``bits`` to the f32 pattern, truncate."""
+    xi = (x.view(torch.int32).to(torch.int64) & 0xFFFFFFFF) + (_u32(bits) & 0xFFFF)
+    xi = xi & 0xFFFF0000
+    xi = torch.where(xi >= 1 << 31, xi - (1 << 32), xi)
+    return xi.to(torch.int32).view(torch.float32).to(torch.bfloat16)
+
+
+def fused_ec_update(theta, p, g, c_tilde, bits1, bits2, *, scalars, stochastic_round):
+    """Plain version of the fused Eq. 6 chain update:
+
+        theta' = theta + (eps*M^-1) * p
+        p'     = decay * p - eps * g - coupling * (theta - c̃) + sigma_p * n
+
+    n = box_muller(bits1, bits2); ``scalars`` is ``ec_scalars(...)``;
+    c̃ broadcasts over theta's leading (chain) axis; bits are shaped like
+    theta.  Returns (theta', p') in theta's and p's dtypes, stored through
+    stochastic rounding when that is on and the dtype is bf16, else by a
+    plain cast."""
+    eps_minv, decay, eps, coupling, sigma_p = scalars
+    t32, p32 = theta.float(), p.float()
+    noise = box_muller(bits1, bits2)
+    theta_new = t32 + eps_minv * p32
+    p_new = decay * p32 - eps * g.float() - coupling * (t32 - c_tilde.float()) + sigma_p * noise
+    if stochastic_round and theta.dtype == torch.bfloat16:
+        sr = bits1 ^ bits2
+        return (stochastic_round_bf16(theta_new, sr),
+                stochastic_round_bf16(p_new, sr ^ (SR_SALT - (1 << 32))))  # as int32
+    return theta_new.to(theta.dtype), p_new.to(p.dtype)

@@ -36,6 +36,19 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
+def tree_unflatten(template, leaves):
+    """The tree of ``template``'s structure holding ``leaves`` in flatten
+    order (the inverse of :func:`tree_leaves`)."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            return {k: build(t[k]) for k in sorted(t)}
+        return next(it)
+
+    return build(template)
+
+
 def tree_map(fn, tree, *rest):
     """Apply ``fn`` leafwise over nested dicts of identical structure."""
     if isinstance(tree, dict):

@@ -335,4 +335,17 @@ def final_logits(cfg: ModelConfig, p, x_last):
 
 
 def chunked_xent(cfg: ModelConfig, p, x, labels, mask=None):
-    raise NotImplementedError("chunked_xent is ported with the sampler slice")
+    """sum_t NLL(labels_t) over sequence chunks of ``cfg.xent_chunk``, so
+    only one chunk's (B, C, V) logits exist at a time (and are kept for the
+    backward pass).  Returns (sum_nll, token_count) as 0-d f32 tensors."""
+    B, S, D = x.shape
+    C = min(cfg.xent_chunk, S)
+    if mask is None:
+        mask = torch.ones((B, S), dtype=torch.float32, device=x.device)
+    sum_nll = torch.zeros((), dtype=torch.float32, device=x.device)
+    for s0 in range(0, S, C):
+        logits = _logits_chunk(cfg, p, x[:, s0:s0 + C])  # (B, C, V) f32
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels[:, s0:s0 + C, None].long())[..., 0]
+        sum_nll = sum_nll + torch.sum((lse - gold) * mask[:, s0:s0 + C].float())
+    return sum_nll, torch.sum(mask.float())

@@ -8,6 +8,7 @@ period) are applied after the loop.  MoE and recurrent block kinds are not
 ported and raise.
 
 Entry points per model:
+  train_nll(cfg, params, batch)            -> (sum_nll, token_count)
   prefill(cfg, params, batch, max_seq)     -> (last_logits, cache)
   decode_step(cfg, params, cache, tokens)  -> (logits, cache)
   paged_decode_step(cfg, params, pools, tokens, tables, ctx, write_block)
@@ -149,13 +150,33 @@ def _positions(cfg: ModelConfig, batch, B, S, device):
 
 
 def backbone(cfg: ModelConfig, params, x, positions):
-    for kind, p in _blocks(cfg, params):
-        x = apply_block(cfg, kind, p, x, positions)
+    """Every block, then the final norm.  The stacked layer leaves are
+    unbound once, so the backward pass writes each leaf's gradient in one
+    stack (indexing per layer would build one full-size gradient per
+    layer).  No rematerialisation: the reference's ``remat`` is a memory
+    tactic that leaves the values unchanged, and the training slice's
+    activations are small."""
+    P, n_periods, rem_kinds = _layout(cfg)
+    per = [tree_map(lambda a: a.unbind(0), params["layers"][str(i)]) for i in range(P)]
+    for n in range(n_periods):
+        for i in range(P):
+            x = apply_block(cfg, cfg.pattern[i], tree_map(lambda a: a[n], per[i]), x, positions)
+    for i, kind in enumerate(rem_kinds):
+        x = apply_block(cfg, kind, params["rem"][str(i)], x, positions)
     return _norm(cfg, x, params["final_norm"])
 
 
 def train_nll(cfg: ModelConfig, params, batch):
-    raise NotImplementedError("train_nll is ported with the sampler slice")
+    """batch: tokens (B, S), labels (B, S), optional mask/positions.
+    Returns (sum_nll, token_count)."""
+    if "patch_embeds" in batch:
+        raise NotImplementedError("patch/frame embeddings (vlm, audio) are not ported")
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    x = L.embed(cfg, params["embed"], tokens)
+    positions = _positions(cfg, batch, B, S, x.device)
+    x = backbone(cfg, params, x, positions)
+    return L.chunked_xent(cfg, params["embed"], x, batch["labels"], batch.get("mask"))
 
 
 def _prefill_block(cfg, kind, p, x, cache, positions):
