@@ -29,7 +29,14 @@ It imports torch, numpy and repro_torch only, and:
 6. trains K=4 chains of qwen3-0.6b at full width for 8 EC-SGHMC steps
    through ``train.loop.run`` with the fused kernel, checks the metrics,
    the launch count and the chains' spread, and profiles two more steps;
-7. prints one JSON line per kernel, the card line, and the result line.
+7. the adaptive tier: holds the preconditioned Eq. 6 kernel against its
+   plain version and against the scalar-mass kernel at M^-1 == 1, runs
+   fused scale-adapted EC-SGHMC with a known frozen M^-1 on a Gaussian
+   target against the exact oracle, and trains the same K=4 qwen3-0.6b
+   chains for 8 scale-adapted EC-SGHMC steps across the burn-in freeze,
+   then profiles two more;
+8. prints one JSON line of the five kernels, the card line, and the result
+   line.
 
 TF32 is off for matmuls and cuDNN (``allow_tf32 = False``), so f32
 products are full f32.  Any failure raises and exits non-zero; without
@@ -424,9 +431,26 @@ ORACLE_CROSS_COV = 0.050435694568097905
 STATIONARY_D = 8192
 STATIONARY_STEPS, STATIONARY_BURN = 4000, 1000
 
+# The on-card preconditioned case: fused scale-adapted EC-SGHMC on
+# N(mu, diag(lam)^-1) with three groups of dimensions, and V̂ set per group
+# with burnin 0, so that V̂ never moves and M^-1 = 1/(sqrt(V̂) + eps) is
+# known before the run.  The oracle numbers are those of
+# repro.diagnostics.preconditioned_ec_sghmc_stationary for this case (per
+# group), which imports jax; tests/test_torch_adaptive_stationary.py pins
+# them, and the M^-1 the sampler forms, to it.
+PRECOND_CASE = dict(eps=0.1, alpha=1.0, s=4, K=4, mu=1.5, lam=[4.0, 1.0, 0.25],
+                    v_hat=[4.0, 1.0, 0.25], minv=[0.5, 1.0, 2.0], decay=0.99, precond_eps=1e-8,
+                    ec_kw=dict(friction=1.0, center_friction=1.0, noise_convention="eq4",
+                               center_noise_in_p=False))
+PRECOND_ORACLE_MEAN = [1.5, 1.5, 1.5]
+PRECOND_ORACLE_VAR = [0.49064196194826687, 1.092295488887424, 2.9153315094854095]
+PRECOND_ORACLE_CROSS_COV = [0.08809420088768465, 0.4640232526241377, 1.994740398526435]
+PRECOND_GROUP_D = 2048  # dimensions per group: D = 6144
+
 SMOKE_TRAIN_ATOL = 1e-5  # card vs CPU after 3 steps: GEMMs sum in another order
 TRAIN_STEPS = 8
 TRAIN_N_DATA = 100_000  # launch/train.py's default
+ADAPTIVE_BURNIN = 4  # both the adapting and the frozen regime within the 8 steps
 
 
 def qwen_leaf_shapes(cfg, K):
@@ -435,17 +459,109 @@ def qwen_leaf_shapes(cfg, K):
     return [(K,) + tuple(s.shape) for s in tree_leaves(get_model(cfg).param_specs(cfg))]
 
 
-def ec_bytes(K, N, itemsize=4, bits=False):
+def ec_bytes(K, N, itemsize=4, bits=False, precond=False):
     """Least traffic of one fused update: theta, p, g read and theta', p'
     written per chain element (g is f32), c~ read once per element of one
-    chain, and the two bit streams in parity mode."""
-    return K * N * (4 * itemsize + 4 + (8 if bits else 0)) + N * itemsize
+    chain, the two bit streams in parity mode, and the f32 M^-1 stream of
+    the preconditioned update."""
+    return K * N * (4 * itemsize + 4 + (8 if bits else 0) + (4 if precond else 0)) + N * itemsize
 
 
 def ulp_gap(torch, got, want) -> float:
     """Largest |got - want| in f32 ULPs of want."""
     ulp = torch.ldexp(torch.ones_like(want), torch.frexp(want).exponent - 24)
     return ((got.float() - want).abs() / ulp).max().item()
+
+
+# The fused kernels' checks: (name, shape, dtype) of the main path's leaves
+# (the embedding, the largest layer leaf) and two ragged leaves, one on
+# each of the kernel's two paths.
+FUSED_CASES = [("embed/table", (4, 151936, 1024), "float32"),
+               ("layers/mlp/w_gate", (4, 28, 1024, 3072), "float32"),
+               ("ragged, 4-wide path", (4, 1000004), "float32"),
+               ("ragged, 1-wide path", (4, 1000003), "float32"),
+               ("embed/table", (4, 151936, 1024), "bfloat16"),
+               ("ragged, 1-wide path", (4, 1000003), "bfloat16")]
+
+
+def fused_operands(torch, g, shape, dtype):
+    """One leaf's operands from the generator g: theta, p, g, M^-1 =
+    exp(0.5 N(0, 1)), c~ and the two bit streams of parity mode."""
+    theta = torch.randn(shape, generator=g, device="cuda").to(dtype)
+    return dict(theta=theta, p=(0.1 * torch.randn(shape, generator=g, device="cuda")).to(dtype),
+                g=torch.randn(shape, generator=g, device="cuda"),
+                minv=torch.exp(0.5 * torch.randn(shape, generator=g, device="cuda")),
+                c=torch.randn(shape[1:], generator=g, device="cuda").to(dtype),
+                bits=tuple(torch.randint(-2**31, 2**31 - 1, shape, generator=g, device="cuda",
+                                         dtype=torch.int32) for _ in range(2)))
+
+
+def check_fused(torch, label, kernel, plain, g, p_ulp_max):
+    """Every FUSED_CASES leaf through kernel(o) and plain(o), each ->
+    (theta', p'): theta' bitwise equal in f32 and p' within p_ulp_max ULP;
+    in bf16 (stochastic rounding) all but 1e-6 of the elements within one
+    bf16 ULP.  Returns (max abs err, rows)."""
+    max_err, rows = 0.0, []
+    for name, shape, dtype in FUSED_CASES:
+        o = fused_operands(torch, g, shape, getattr(torch, dtype))
+        (t_k, p_k), (t_r, p_r) = kernel(o), plain(o)
+        torch.cuda.synchronize()
+        err = max((t_k.float() - t_r.float()).abs().max().item(),
+                  (p_k.float() - p_r.float()).abs().max().item())
+        if dtype == "float32":
+            gap, same = ulp_gap(torch, p_k, p_r), torch.equal(p_k, p_r)
+            log(f"[{label}] {name} {shape} f32: theta' bitwise equal {torch.equal(t_k, t_r)}, p' "
+                f"bitwise equal {same} (max gap {gap:.0f} ULP, max abs err {err:.3e})")
+            if not torch.equal(t_k, t_r) or gap > p_ulp_max:
+                raise AssertionError(f"{label} {name}: theta' not bitwise equal to the plain "
+                                     f"version, or p' more than {p_ulp_max} ULP from it")
+            max_err = max(max_err, err)
+            rows.append(dict(name=name, shape=shape, dtype="f32", err=err, ulp=gap))
+        else:
+            shares = []
+            for a, b in ((t_k, t_r), (p_k, p_r)):
+                ai, bi = a.view(torch.int16).int(), b.view(torch.int16).int()
+                shares.append(((ai == bi).float().mean().item(),
+                               ((ai - bi).abs() <= 1).float().mean().item()))
+            log(f"[{label}] {name} {shape} bf16, stochastic rounding: share equal theta' "
+                f"{shares[0][0]:.9f} p' {shares[1][0]:.9f}; within 1 bf16 ULP "
+                f"{shares[0][1]:.9f} / {shares[1][1]:.9f}")
+            if min(s[1] for s in shares) < 1.0 - 1e-6:
+                raise AssertionError(f"{label} {name} bf16: more than 1e-6 of the elements "
+                                     "differ by more than 1 bf16 ULP")
+            rows.append(dict(name=name, shape=shape, dtype="bf16", shares=shares))
+        del o, t_k, p_k, t_r, p_r
+        torch.cuda.empty_cache()
+    return max_err, rows
+
+
+def step_times(torch, label, launch, plain, g, cfg_full, precond):
+    """Per-step times over qwen3-0.6b's 13 leaves at K = 4, f32: the kernel
+    in Philox and in parity mode (launch(o, K, N, theta_out, bits), p'
+    over p), the plain version (median of 5) and the bounds."""
+    K = 4
+    ms = parity_ms = plain_ms = 0.0
+    nbytes = parity_bytes = 0
+    shapes = qwen_leaf_shapes(cfg_full, K)
+    for shape in shapes:
+        o = fused_operands(torch, g, shape, torch.float32)
+        N = o["theta"].numel() // K
+        t_out = torch.empty_like(o["theta"])
+        ms += time_ms(torch, lambda: launch(o, K, N, t_out, (None, None)))
+        parity_ms += time_ms(torch, lambda: launch(o, K, N, t_out, o["bits"]))
+        plain_ms += time_ms(torch, lambda: plain(o), reps=5, warmup=1)
+        nbytes += ec_bytes(K, N, precond=precond)
+        parity_bytes += ec_bytes(K, N, bits=True, precond=precond)
+        del o, t_out
+        torch.cuda.empty_cache()
+    b_ms, b_by = bound(nbytes, 0.0, F32_FLOPS_PER_S)
+    pb_ms, _ = bound(parity_bytes, 0.0, F32_FLOPS_PER_S)
+    log(f"[{label}] one step of qwen3-0.6b K={K}, {len(shapes)} leaves, f32: kernel {ms:.4f} ms "
+        f"(Philox mode), bound {b_ms:.4f} ms ({nbytes / 1e9:.2f} GB, {b_by}); parity mode "
+        f"{parity_ms:.4f} ms, bound {pb_ms:.4f} ms ({parity_bytes / 1e9:.2f} GB); plain version "
+        f"{plain_ms:.4f} ms (bits given, median of 5); library: none")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                parity_ms=parity_ms, parity_bound_ms=pb_ms, bytes=nbytes)
 
 
 def phase_fused_ec(torch, ops, ref, cfg_full):
@@ -458,87 +574,62 @@ def phase_fused_ec(torch, ops, ref, cfg_full):
     g = torch.Generator(device="cuda").manual_seed(14)
     scalars = ref.ec_scalars(EC_HYPER["eps"], EC_HYPER["friction"], 1.0 / EC_HYPER["mass"],
                              EC_HYPER["alpha"], EC_HYPER["sigma_p"])
-    K = 4
+    plain = lambda o: ref.fused_ec_update(o["theta"], o["p"], o["g"], o["c"], *o["bits"],
+                                          scalars=scalars, stochastic_round=True)
+    err, rows = check_fused(
+        torch, "fused_ec",
+        lambda o: ops.fused_ec_update(o["theta"], o["p"], o["g"], o["c"], bits=o["bits"],
+                                      **EC_HYPER),
+        plain, g, EC_ULP_MAX)
+    launch = lambda o, K, N, t_out, bits: fe.launch(
+        o["theta"], o["p"], o["g"], o["c"], *bits, t_out, o["p"], K=K, N=N, seed=EC_KEY, leaf=0,
+        step=0, scalars=scalars, stochastic_round=True)
+    out = step_times(torch, "fused_ec", launch, plain, g, cfg_full, precond=False)
+    return dict(out, err=err, ulp=max(r.get("ulp", 0.0) for r in rows), rows=rows)
 
-    def operands(shape, dtype):
-        theta = torch.randn(shape, generator=g, device="cuda").to(dtype)
-        p = (0.1 * torch.randn(shape, generator=g, device="cuda")).to(dtype)
-        grad = torch.randn(shape, generator=g, device="cuda")
-        c = torch.randn(shape[1:], generator=g, device="cuda").to(dtype)
-        bits = tuple(torch.randint(-2**31, 2**31 - 1, shape, generator=g, device="cuda",
-                                   dtype=torch.int32) for _ in range(2))
-        return theta, p, grad, c, bits
 
-    cases = [("embed/table", (K, 151936, 1024), torch.float32),
-             ("layers/mlp/w_gate", (K, 28, 1024, 3072), torch.float32),
-             ("ragged, 4-wide path", (K, 1000004), torch.float32),
-             ("ragged, 1-wide path", (K, 1000003), torch.float32),
-             ("embed/table", (K, 151936, 1024), torch.bfloat16),
-             ("ragged, 1-wide path", (K, 1000003), torch.bfloat16)]
-    max_err, max_ulp, rows = 0.0, 0.0, []
-    for name, shape, dtype in cases:
-        theta, p, grad, c, bits = operands(shape, dtype)
-        t_k, p_k = ops.fused_ec_update(theta, p, grad, c, bits=bits, **EC_HYPER)
-        t_r, p_r = ref.fused_ec_update(theta, p, grad, c, *bits, scalars=scalars,
-                                       stochastic_round=True)
-        torch.cuda.synchronize()
-        err = max((t_k.float() - t_r.float()).abs().max().item(),
-                  (p_k.float() - p_r.float()).abs().max().item())
-        if dtype == torch.float32:
-            if not torch.equal(t_k, t_r):
-                raise AssertionError(f"fused_ec {name}: theta' is not bitwise equal to the plain version")
-            gap = ulp_gap(torch, p_k, p_r)
-            same = torch.equal(p_k, p_r)
-            if gap > EC_ULP_MAX:
-                raise AssertionError(f"fused_ec {name}: p' differs by {gap} ULP > {EC_ULP_MAX}")
-            max_err, max_ulp = max(max_err, err), max(max_ulp, gap)
-            log(f"[fused_ec] {name} {tuple(shape)} f32: theta' bitwise equal, p' bitwise "
-                f"equal={same} (max gap {gap:.0f} ULP, max abs err {err:.3e})")
-            rows.append(dict(name=name, shape=shape, dtype="f32", err=err, ulp=gap))
-        else:
-            shares = []
-            for a, b in ((t_k, t_r), (p_k, p_r)):
-                ai, bi = a.view(torch.int16).int(), b.view(torch.int16).int()
-                shares.append(((ai == bi).float().mean().item(),
-                               ((ai - bi).abs() <= 1).float().mean().item()))
-            log(f"[fused_ec] {name} {tuple(shape)} bf16, stochastic rounding: share equal "
-                f"theta' {shares[0][0]:.9f} p' {shares[1][0]:.9f}; within 1 bf16 ULP "
-                f"{shares[0][1]:.9f} / {shares[1][1]:.9f}")
-            if min(s[1] for s in shares) < 1.0 - 1e-6:
-                raise AssertionError(f"fused_ec {name} bf16: more than 1e-6 of the elements "
-                                     "differ by more than 1 bf16 ULP")
-            rows.append(dict(name=name, shape=shape, dtype="bf16", shares=shares))
-        del theta, p, grad, c, bits, t_k, p_k, t_r, p_r
+def phase_fused_precond(torch, ops, ref, cfg_full):
+    """The preconditioned kernel as ``phase_fused_ec`` checks the scalar-mass
+    one, with M^-1 = exp(0.5 N(0, 1)) and p' bitwise; and at M^-1 == 1
+    against the scalar-mass kernel on both paths, in both noise modes."""
+    import repro_torch.kernels.fused_ecsghmc as fe
+
+    g = torch.Generator(device="cuda").manual_seed(15)
+    hyper = {k: v for k, v in EC_HYPER.items() if k != "mass"}
+    scalars = ref.precond_scalars(**hyper)
+    plain = lambda o: ref.fused_precond_ec_update(o["theta"], o["p"], o["g"], o["c"], o["minv"],
+                                                  *o["bits"], scalars=scalars,
+                                                  stochastic_round=True)
+    err, rows = check_fused(
+        torch, "fused_precond",
+        lambda o: ops.fused_precond_ec_update(o["theta"], o["p"], o["g"], o["c"], o["minv"],
+                                              bits=o["bits"], **hyper),
+        plain, g, 0)
+
+    # at M^-1 == 1 the two kernels agree bit for bit (the reference's
+    # promise for its two dispatch paths)
+    for N in (1000004, 1000003):
+        o = fused_operands(torch, g, (4, N), torch.float32)
+        args = (o["theta"], o["p"], o["g"], o["c"])
+        for mode, noise in (("Philox", dict(seed=EC_KEY, leaf=5, step=11)),
+                            ("parity", dict(bits=o["bits"]))):
+            a = ops.fused_precond_ec_update(*args, torch.ones_like(o["theta"]), **noise, **hyper)
+            b = ops.fused_ec_update(*args, mass=1.0, **noise, **hyper)
+            torch.cuda.synchronize()
+            same = torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+            log(f"[fused_precond] M^-1 == 1 vs fused_ec_update(mass=1), N={N}, {mode} mode: "
+                f"bitwise equal {same}")
+            if not same:
+                raise AssertionError(f"precond kernel at M^-1 == 1 differs from fused_ec_update "
+                                     f"({mode})")
+        del o, args, a, b
         torch.cuda.empty_cache()
 
-    # per-step times at the main path: 13 leaves of qwen3-0.6b, K = 4, f32
-    ms = parity_ms = plain_ms = 0.0
-    nbytes = parity_bytes = 0
-    shapes = qwen_leaf_shapes(cfg_full, K)
-    for shape in shapes:
-        theta, p, grad, c, bits = operands(shape, torch.float32)
-        N = theta.numel() // K
-        t_out = torch.empty_like(theta)
-        run = lambda b1, b2: fe.launch(theta, p, grad, c, b1, b2, t_out, p, K=K, N=N,
-                                       seed=EC_KEY, leaf=0, step=0, scalars=scalars,
-                                       stochastic_round=True)
-        ms += time_ms(torch, lambda: run(None, None))
-        parity_ms += time_ms(torch, lambda: run(*bits))
-        plain_ms += time_ms(torch, lambda: ref.fused_ec_update(
-            theta, p, grad, c, *bits, scalars=scalars, stochastic_round=True), reps=5, warmup=1)
-        nbytes += ec_bytes(K, N)
-        parity_bytes += ec_bytes(K, N, bits=True)
-        del theta, p, grad, c, bits, t_out
-        torch.cuda.empty_cache()
-    b_ms, b_by = bound(nbytes, 0.0, F32_FLOPS_PER_S)
-    pb_ms, _ = bound(parity_bytes, 0.0, F32_FLOPS_PER_S)
-    log(f"[fused_ec] one step of qwen3-0.6b K={K}, {len(shapes)} leaves, f32: kernel {ms:.4f} ms "
-        f"(Philox mode), bound {b_ms:.4f} ms ({nbytes / 1e9:.2f} GB, {b_by}); parity mode "
-        f"{parity_ms:.4f} ms, bound {pb_ms:.4f} ms ({parity_bytes / 1e9:.2f} GB); plain version "
-        f"{plain_ms:.4f} ms (bits given, median of 5); library: none")
-    return dict(err=max_err, ulp=max_ulp, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=None, parity_ms=parity_ms, parity_bound_ms=pb_ms, bytes=nbytes,
-                rows=rows)
+    launch = lambda o, K, N, t_out, bits: fe.launch_precond(
+        o["theta"], o["p"], o["g"], o["minv"], o["c"], *bits, t_out, o["p"], K=K, N=N,
+        seed=EC_KEY, leaf=0, step=0, scalars=scalars, stochastic_round=True)
+    out = step_times(torch, "fused_precond", launch, plain, g, cfg_full, precond=True)
+    return dict(out, err=err, rows=rows)
 
 
 def phase_philox(torch, ops, ref, cfg_full):
@@ -624,17 +715,7 @@ def phase_stationary(torch):
     if not np.allclose(diag.welford_mean(res.moments).cpu().numpy(), traj.mean(0), rtol=2e-4, atol=2e-4):
         raise AssertionError("in-carry Welford mean disagrees with the trajectory")
     traj = np.moveaxis(traj[STATIONARY_BURN:], 1, 0).astype(np.float64)  # (K, T, D)
-    emp_mean = traj.mean()
-    ess = float(np.sum(diag.coupled_ess_nd(traj)))
-    mean_tol = 3.0 * math.sqrt(ORACLE_VAR / ess) + 1e-4
-    dev = traj - ORACLE_MEAN
-    checks = [("mean", emp_mean, ORACLE_MEAN, mean_tol, ess)]
-    for name, series, want in (
-            ("var", np.mean(dev * dev, axis=0), ORACLE_VAR),
-            ("cross-cov", np.mean([dev[i] * dev[j] for i in range(K) for j in range(i + 1, K)],
-                                  axis=0), ORACLE_CROSS_COV)):
-        ess_s = float(np.sum(diag.coupled_ess_nd(series[None])))
-        checks.append((name, series.mean(), want, 3.0 * math.sqrt(series.var() / ess_s), ess_s))
+    checks = stationary_checks(traj, ORACLE_MEAN, ORACLE_VAR, ORACLE_CROSS_COV)
     log(f"[stationary] fused EC-SGHMC K={K} D={D} eps={c['eps']} alpha={c['alpha']} s={c['s']}, "
         f"{STATIONARY_STEPS} steps (burn-in {STATIONARY_BURN}) in {wall:.2f} s: "
         + "; ".join(f"{n} {got:.6f} vs oracle {want:.6f} (3 sigma {tol:.2e}, ESS {e:.0f})"
@@ -642,6 +723,69 @@ def phase_stationary(torch):
     bad = [n for n, got, want, tol, _ in checks if not abs(got - want) < tol]
     if bad:
         raise AssertionError(f"on-card stationary {bad} miss the oracle")
+
+
+def stationary_checks(traj, mean, var, cross):
+    """(name, got, want, 3 sigma, ESS) per moment of a (K, T, D) trajectory
+    against the oracle's mean, variance and cross-covariance, as
+    ``phase_stationary`` forms them."""
+    from repro_torch import diagnostics as diag
+
+    K = traj.shape[0]
+    ess = float(np.sum(diag.coupled_ess_nd(traj)))
+    checks = [("mean", traj.mean(), mean, 3.0 * math.sqrt(var / ess) + 1e-4, ess)]
+    dev = traj - mean
+    for name, series, want in (
+            ("var", np.mean(dev * dev, axis=0), var),
+            ("cross-cov", np.mean([dev[i] * dev[j] for i in range(K) for j in range(i + 1, K)],
+                                  axis=0), cross)):
+        ess_s = float(np.sum(diag.coupled_ess_nd(series[None])))
+        checks.append((name, series.mean(), want, 3.0 * math.sqrt(series.var() / ess_s), ess_s))
+    return checks
+
+
+def phase_stationary_precond(torch):
+    """Fused scale-adapted EC-SGHMC with in-kernel Philox noise and a known
+    frozen M^-1 per group of dimensions, through the port's rollout, against
+    the exact oracle at 3 sigma, per group (as ``phase_stationary``)."""
+    from repro_torch import core
+    from repro_torch.core import rng
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.run import rollout
+
+    c = PRECOND_CASE
+    K, G, n_g = c["K"], len(c["lam"]), PRECOND_GROUP_D
+    per_dim = lambda xs: torch.tensor(xs, device="cuda").repeat_interleave(n_g)  # (D,)
+    lam = per_dim(c["lam"])
+    sampler = core.scale_adapted_ec_sghmc(
+        step_size=c["eps"], alpha=c["alpha"], sync_every=c["s"], burnin=0, decay=c["decay"],
+        precond_eps=c["precond_eps"], fused=True, **c["ec_kw"])
+    p0 = torch.full((K, G * n_g), c["mu"] + 1.0, device="cuda")
+    state = sampler.init(p0)
+    state.precond.v.copy_(per_dim(c["v_hat"]).expand(K, -1))
+    reset_launches()
+    t0 = time.perf_counter()
+    res = rollout(sampler, lambda th: lam * (th - c["mu"]), p0, num_steps=STATIONARY_STEPS,
+                  keys=rng.split(rng.key(37), STATIONARY_STEPS), state=state, moments=False,
+                  chunk_steps=1000)
+    wall = time.perf_counter() - t0
+    if launches["fused_precond_ec_update"] != STATIONARY_STEPS:
+        raise AssertionError(f"stationary-precond launched the kernel "
+                             f"{launches['fused_precond_ec_update']} times")
+    traj = np.moveaxis(res.trace.cpu().numpy()[STATIONARY_BURN:], 1, 0).astype(np.float64)
+    bad = []
+    for i in range(G):
+        checks = stationary_checks(traj[..., i * n_g:(i + 1) * n_g], PRECOND_ORACLE_MEAN[i],
+                                   PRECOND_ORACLE_VAR[i], PRECOND_ORACLE_CROSS_COV[i])
+        log(f"[stationary-precond] group {i} (lam {c['lam'][i]}, M^-1 {c['minv'][i]}): "
+            + "; ".join(f"{n} {got:.6f} vs oracle {want:.6f} (3 sigma {tol:.2e}, ESS {e:.0f})"
+                        for n, got, want, tol, e in checks))
+        bad += [f"group {i} {n}" for n, got, want, tol, _ in checks if not abs(got - want) < tol]
+    log(f"[stationary-precond] fused scale-adapted EC-SGHMC K={K} D={G * n_g} eps={c['eps']} "
+        f"alpha={c['alpha']} s={c['s']}, frozen M^-1 {c['minv']}, {STATIONARY_STEPS} steps "
+        f"(burn-in {STATIONARY_BURN}) in {wall:.2f} s")
+    if bad:
+        raise AssertionError(f"on-card preconditioned stationary {bad} miss the oracle")
 
 
 def phase_smoke_train(torch):
@@ -703,13 +847,15 @@ TRAIN_CLASSES = (  # (label, substrings of a device kernel's name), first match 
 )
 
 
-def phase_train(torch, card):
-    """qwen3-0.6b at full width, K = 4 chains, 8 EC-SGHMC steps through
-    train.loop.run with the fused sampler in production mode."""
+def phase_train(torch, card, adaptive=False):
+    """qwen3-0.6b at full width, K = 4 chains, 8 steps through
+    train.loop.run in production mode: fused EC-SGHMC (``[train]``), or
+    with ``adaptive`` fused scale-adapted EC-SGHMC across its burn-in
+    freeze (``[train-adaptive]``); then 2 profiled steps."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch import configs
+    from repro_torch import configs, core
     from repro_torch.data import chain_batches, synthetic_token_stream
     from repro_torch.diagnostics import chain_center_rms
     from repro_torch.kernels import launches, reset_launches
@@ -717,13 +863,21 @@ def phase_train(torch, card):
     from repro_torch.models import get_model, tree_leaves
     from repro_torch.train import LoopConfig, loop, make_train_step
 
+    label = "train-adaptive" if adaptive else "train"
+    kernel = "fused_precond_ec_update" if adaptive else "fused_ec_update"
     cfg = configs.get_config("qwen3-0.6b")
     model = get_model(cfg)
     K = configs.EC_CHAINS["qwen3-0.6b"]
-    log(f"[train] device memory before the phase: {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    log(f"[{label}] device memory before the phase: {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     torch.cuda.reset_peak_memory_stats()
     params = stacked_members(torch, cfg, model, K, "cuda", seed0=300)
-    samp = default_sampler(cfg, "qwen3-0.6b", K, sync_every=4, fused=True, step_size=1e-6)
+    if adaptive:
+        samp = core.scale_adapted_ec_sghmc(step_size=1e-6, alpha=1.0, friction=1.0,
+                                           center_friction=1.0, sync_every=4,
+                                           burnin=ADAPTIVE_BURNIN, decay=0.99, fused=True,
+                                           state_dtype=cfg.param_dtype)
+    else:
+        samp = default_sampler(cfg, "qwen3-0.6b", K, sync_every=4, fused=True, step_size=1e-6)
     state = samp.init(params)
     stream = synthetic_token_stream(cfg.vocab_size, seed=0, device="cuda")
     batch_fn = lambda t: chain_batches(stream, t, K, 4, 64)
@@ -747,22 +901,31 @@ def phase_train(torch, card):
     steady = (hist[-1]["wall_s"] - hist[0]["wall_s"]) / max(len(hist) - 1, 1)
     rms = chain_center_rms(params, state.center).item()
     mom = sum(torch.sum(x.float() ** 2).item() for x in tree_leaves(state.momentum)) ** 0.5
-    log(f"[train] qwen3-0.6b full width, K={K}, batch 4 x 64 per chain, sync every 4, eps 1e-6, "
+    name = "scale-adapted EC-SGHMC" if adaptive else "EC-SGHMC"
+    log(f"[{label}] qwen3-0.6b full width, K={K}, {name}, batch 4 x 64 per chain, sync every 4, "
+        f"eps 1e-6{f', burnin {ADAPTIVE_BURNIN}, decay 0.99' if adaptive else ''}, "
         f"{TRAIN_STEPS} steps in {wall:.2f} s; per step {['%.3f' % w for w in walls]} s; steady "
         f"{steady:.3f} s/step = {1 / max(steady, 1e-9):.3f} steps/s; peak device memory "
         f"{peak / 2**30:.2f} GiB [{card}]")
-    log(f"[train] nll per token by step {[round(m['nll_per_token'], 4) for m in hist]} "
+    log(f"[{label}] nll per token by step {[round(m['nll_per_token'], 4) for m in hist]} "
         f"(ln V = {math.log(cfg.vocab_size):.3f}); chain_center_rms by step "
         f"{[float('%.4g' % m['chain_center_rms']) for m in hist]}; momentum norm {mom:.4g}; "
         f"launches {counts}")
     if abs(nll0 - math.log(cfg.vocab_size)) > 1.5:
         raise AssertionError(f"first step's nll {nll0} is not within 1.5 of ln V")
-    if counts["fused_ec_update"] != TRAIN_STEPS * n_leaves:
-        raise AssertionError(f"fused_ec_update launched {counts['fused_ec_update']} times, "
-                             f"not {TRAIN_STEPS * n_leaves}")
+    if counts[kernel] != TRAIN_STEPS * n_leaves:
+        raise AssertionError(f"{kernel} launched {counts[kernel]} times, not {TRAIN_STEPS * n_leaves}")
     if not (mom > 0 and math.isfinite(rms) and rms > 0
             and all(m["chain_center_rms"] > 0 for m in hist[3:])):
         raise AssertionError("momentum or chain spread is zero after the first sync")
+    v_means = None
+    if adaptive:
+        # V̂ adapts on steps 1..burnin and is frozen after
+        v_means = [m["precond_v_mean"] for m in hist]
+        log(f"[{label}] precond_v_mean by step {['%.9g' % v for v in v_means]}")
+        moving, frozen = v_means[:ADAPTIVE_BURNIN], v_means[ADAPTIVE_BURNIN - 1:]
+        if len(set(moving)) != len(moving) or len(set(frozen)) != 1:
+            raise AssertionError(f"V̂ did not adapt for {ADAPTIVE_BURNIN} steps and then freeze")
 
     # where a step's time goes: 2 more steps under the profiler, against
     # the wall clock of 2 unprofiled steps
@@ -779,28 +942,30 @@ def phase_train(torch, card):
         two_steps(200)
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     device_us = sum(e.self_device_time_total for e in kernels)
-    (OUT / "train_profile.txt").write_text(
+    (OUT / f"{label.replace('-', '_')}_profile.txt").write_text(
         prof.key_averages().table(sort_by="self_device_time_total", row_limit=60))
     split = {}
     if device_us > 0:
         for e in kernels:
-            label = next((lab for lab, keys in TRAIN_CLASSES if any(k in e.key for k in keys)),
-                         "other elementwise and reductions")
-            split[label] = split.get(label, 0.0) + e.self_device_time_total
-        log(f"[train-profile] 2 steps: wall {wall2:.3f} s without the profiler, device kernels "
+            lab = next((lab for lab, keys in TRAIN_CLASSES if any(k in e.key for k in keys)),
+                       "other elementwise and reductions")
+            split[lab] = split.get(lab, 0.0) + e.self_device_time_total
+        log(f"[{label}-profile] 2 steps: wall {wall2:.3f} s without the profiler, device kernels "
             f"{device_us / 1e6:.3f} s = {100 * device_us / 1e6 / wall2:.1f}% busy, "
             f"{sum(e.count for e in kernels)} kernels [{card}]")
         for lab, us in sorted(split.items(), key=lambda kv: -kv[1]):
-            log(f"[train-profile]   {100 * us / device_us:5.1f}%  {us / 1e3:9.3f} ms  {lab}")
+            log(f"[{label}-profile]   {100 * us / device_us:5.1f}%  {us / 1e3:9.3f} ms  {lab}")
         for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
-            log(f"[train-profile]   {100 * e.self_device_time_total / device_us:5.1f}%  "
+            log(f"[{label}-profile]   {100 * e.self_device_time_total / device_us:5.1f}%  "
                 f"{e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<6d} {e.key[:80]}")
     else:
-        log("[train-profile] torch.profiler recorded no device time: busy share not measured")
-    del params, state
+        log(f"[{label}-profile] torch.profiler recorded no device time: busy share not measured")
+    del params, state, samp, step
+    gc.collect()
     torch.cuda.empty_cache()
     return counts, dict(wall=wall, steady=steady, peak=peak, nll0=nll0, device_us=device_us,
-                        wall2=wall2, split=split)
+                        wall2=wall2, split=split, v_means=v_means,
+                        nll=[m["nll_per_token"] for m in hist])
 
 
 def main() -> int:
@@ -834,8 +999,10 @@ def main() -> int:
     paged = phase_paged(torch, ops, ref)
     bma = phase_bma(torch, ops, ref)
     fused = phase_fused_ec(torch, ops, ref, qwen)
+    precond = phase_fused_precond(torch, ops, ref, qwen)
     phase_philox(torch, ops, ref, qwen)
     phase_stationary(torch)
+    phase_stationary_precond(torch)
     phase_smoke_engine(torch)
     phase_smoke_train(torch)
     counts, per_tick = phase_slice(torch, card)
@@ -844,6 +1011,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_counts, train = phase_train(torch, card)
     counts["fused_ec_update"] = train_counts["fused_ec_update"]
+    adaptive_counts, train_adaptive = phase_train(torch, card, adaptive=True)
+    counts["fused_precond_ec_update"] = adaptive_counts["fused_precond_ec_update"]
 
     f128 = next(r for r in flash if r["S"] == 128)
     bg = next(r for r in bma if r["mode"] == "probs" and r["T"] == 0.0)
@@ -856,6 +1025,8 @@ def main() -> int:
          "src/repro/kernels/bma_select.py:42", bg),
         ("fused_ec_update", "src/repro_torch/kernels/csrc/fused_ecsghmc.cu",
          "src/repro/kernels/fused_ecsghmc.py:54", fused),
+        ("fused_precond_ec_update", "src/repro_torch/kernels/csrc/fused_ecsghmc.cu",
+         "src/repro/kernels/fused_ecsghmc.py:156", precond),
     ]
     kernels = [
         {"name": n, "route": "cuda", "source": src, "replaces": rep, "launches": counts[n],
@@ -865,7 +1036,9 @@ def main() -> int:
     ]
     (OUT / "result.json").write_text(json.dumps({"card": card, "kernels": kernels,
                                                   "flash": flash, "paged": paged, "bma": bma,
-                                                  "fused_ec": fused, "train": train},
+                                                  "fused_ec": fused, "fused_precond": precond,
+                                                  "train": train,
+                                                  "train_adaptive": train_adaptive},
                                                  indent=1, default=str))
     print(json.dumps({"kernels": kernels}))
     print(card)

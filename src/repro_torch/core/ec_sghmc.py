@@ -53,11 +53,17 @@ F32 = np.float32
 def p_step(p, g, theta, c_tilde, noise, *, eps, friction, minv, alpha, sigma_p,
            out_dtype=torch.float32):
     """Eq. 6 momentum line, one leaf:  p' = (1 - eps V M^-1) p - eps g
-    - eps alpha (theta - c̃) + sigma_p n.  The scalars come from
-    ``kernels.ref.ec_scalars`` and the terms are grouped as the fused
-    kernel groups them, so given the same noise the two agree bit for bit
-    in f32."""
-    _, decay, e, coupling, sp = kref.ec_scalars(eps, friction, minv, alpha, sigma_p)
+    - eps alpha (theta - c̃) + sigma_p n.  ``minv`` is a scalar M^-1 or an
+    f32 tensor (a diagonal M^-1, shaped like p).  The scalars come from
+    ``kernels.ref.ec_scalars`` (scalar M^-1) or ``ref.precond_scalars``
+    (tensor M^-1, grouped as (1 - (eps V) M^-1) p), and the terms are
+    grouped as the fused kernels group them, so given the same noise the
+    two agree bit for bit in f32."""
+    if isinstance(minv, torch.Tensor):
+        e, ef, coupling, sp = kref.precond_scalars(eps, friction, alpha, sigma_p)
+        decay = 1.0 - ef * minv
+    else:
+        _, decay, e, coupling, sp = kref.ec_scalars(eps, friction, minv, alpha, sigma_p)
     out = (
         decay * p.float()
         - e * g.float()
@@ -172,30 +178,40 @@ def ec_sghmc(
             c.copy_(c.float() + em * r32)
             r.copy_(r_new)
 
-        # -- s-periodic exchange: workers push theta^i (post-update), the
-        # server replies with c; leaf by leaf, so theta + u never exists whole
         if (state.step + 1) % s == 0:
-            for ct, c in zip(tree_leaves(state.center_stale), tree_leaves(state.center)):
-                ct.copy_(c)
-            for mth, th, u in zip(*map(tree_leaves, (state.mean_theta_stale, params, updates))):
-                mth.copy_(torch.mean(th.float() + u, dim=0))
+            stale_exchange(state, params, updates)
         return updates, state._replace(step=state.step + 1)
 
     def stats(state, params):
-        """Scalar diagnostics as 0-d tensors (no host sync)."""
-        n_elem = max(count_params(params), 1)
-        rms = chain_center_rms(params, state.center)
-        k = int(tree_leaves(params)[0].shape[0])
-        return {
-            "step": state.step,
-            "momentum_norm": global_norm(state.momentum),
-            "center_momentum_norm": global_norm(state.center_momentum),
-            "chain_center_rms": rms,
-            # the Eq. 5 coupling energy (1/K) sum_i (alpha/2)||theta^i - c||^2
-            "coupling_energy": 0.5 * alpha * rms * rms * (n_elem / k),
-        }
+        return ec_stats(state, params, alpha)
 
     return Sampler(init, update, stats=stats)
+
+
+def stale_exchange(state, params, updates) -> None:
+    """The s-periodic exchange, in place: workers push theta^i (post-update,
+    theta + u), the server replies with c.  Leaf by leaf, so theta + u
+    never exists whole."""
+    for ct, c in zip(tree_leaves(state.center_stale), tree_leaves(state.center)):
+        ct.copy_(c)
+    for mth, th, u in zip(*map(tree_leaves, (state.mean_theta_stale, params, updates))):
+        mth.copy_(torch.mean(th.float() + u, dim=0))
+
+
+def ec_stats(state, params, alpha: float) -> dict:
+    """Scalar diagnostics of a coupled sampler's state as 0-d tensors (no
+    host sync)."""
+    n_elem = max(count_params(params), 1)
+    rms = chain_center_rms(params, state.center)
+    k = int(tree_leaves(params)[0].shape[0])
+    return {
+        "step": state.step,
+        "momentum_norm": global_norm(state.momentum),
+        "center_momentum_norm": global_norm(state.center_momentum),
+        "chain_center_rms": rms,
+        # the Eq. 5 coupling energy (1/K) sum_i (alpha/2)||theta^i - c||^2
+        "coupling_energy": 0.5 * alpha * rms * rms * (n_elem / k),
+    }
 
 
 def resample_chain_from_center(state: ECSGHMCState, alpha: float, rng, num_chains: int):

@@ -4,7 +4,8 @@ PyTorch version in ``ref``:
 * flash_attention — causal blocked prefill attention
 * paged_attention — single-token decode against a block-paged KV pool
 * bma_select — BMA mixture over K members + temperature/top-k selection
-* fused_ecsghmc — the one-pass Eq. 6 chain update of EC-SGHMC, with
+* fused_ecsghmc — the one-pass Eq. 6 chain update of EC-SGHMC, with a
+  scalar mass or a streamed diagonal M^-1 (the adaptive tier), and
   Box-Muller noise from given bits or in-kernel Philox
 
 ``ops`` dispatches: CPU tensors to ``ref``, CUDA tensors to the kernels.
@@ -15,6 +16,8 @@ from .ops import (
     fused_bma_select,
     fused_ec_update,
     fused_ec_update_tree,
+    fused_precond_ec_update,
+    fused_precond_ec_update_tree,
     launches,
     paged_attention,
     reset_launches,
@@ -25,6 +28,8 @@ __all__ = [
     "fused_bma_select",
     "fused_ec_update",
     "fused_ec_update_tree",
+    "fused_precond_ec_update",
+    "fused_precond_ec_update_tree",
     "launches",
     "paged_attention",
     "ref",

@@ -1,36 +1,41 @@
-// Fused EC-SGHMC chain update (paper Eq. 6), one leaf per launch, for sm_90a.
+// Fused EC-SGHMC chain updates (paper Eq. 6), one leaf per launch, for sm_90a.
 //
-// Replaces: repro/kernels/fused_ecsghmc.py::_kernel (Pallas, TPU), line 54.
+// Replaces: repro/kernels/fused_ecsghmc.py::_kernel (Pallas, TPU), line 54,
+// and, with PRECOND, ::_precond_kernel (line 156).
 // Computes, for every element of a (K, N) leaf (K chains of N elements):
 //   theta' = theta + eps_minv * p
 //   p'     = decay * p - eps * g - coupling * (theta - c~) + sigma_p * n
+// or, preconditioned, with a per-element diagonal m = M^-1 of shape (K, N):
+//   theta' = theta + (eps * m) * p
+//   p'     = (1 - ef * m) * p - eps * g - coupling * (theta - c~) + sigma_p * n
 // with n = Box-Muller(bits1, bits2) and c~ the stale center, which has no
-// chain axis (N elements).  f32 or bf16 state; g is f32; arithmetic in f32.
-// bf16 stores go through stochastic rounding with the bits b1^b2 (theta')
-// and 0x9E3779B9^b1^b2 (p') when it is on, else round to nearest.
+// chain axis (N elements).  f32 or bf16 state; g and m are f32; arithmetic
+// in f32.  bf16 stores go through stochastic rounding with the bits b1^b2
+// (theta') and 0x9E3779B9^b1^b2 (p') when it is on, else round to nearest.
 //
 // What bounds it on this card: bytes.  Per chain element it reads theta, p
-// and g and writes theta' and p' (20 B in f32); c~ adds 4 B per element of
-// one chain, because each thread reads its c~ once and applies it to all K
-// chains.  About 10 flops and two transcendentals per element: far below
-// the ridge.  At qwen3-0.6b, K = 4, one step moves 50.1 GB, 14.9 ms at
-// 3.35 TB/s.
+// and g (and m) and writes theta' and p' (20 B in f32, 24 B with m); c~
+// adds 4 B per element of one chain, because each thread reads its c~ once
+// and applies it to all K chains.  About 10 flops and two transcendentals
+// per element: far below the ridge.  At qwen3-0.6b, K = 4, one step moves
+// 50.1 GB (59.6 GB preconditioned), 14.9 ms (17.8 ms) at 3.35 TB/s.
 //
 // Design: a grid-stride loop over groups of 4 consecutive elements of one
 // chain (16-byte loads of f32 state, 8-byte of bf16) when N % 4 == 0 and
 // every pointer is 16-byte aligned, else over single elements; either way
 // a thread walks the K chains of its group, so nothing is padded and the
-// ragged tail needs no copy.  The five scalars come in as arguments.  Noise
+// ragged tail needs no copy.  The scalars come in as arguments.  Noise
 // has two modes: parity mode reads bits1/bits2 (flat, the leaf's element
 // order); production mode makes them here with Philox-4x32-10, key
 // (seed lo, seed hi), counter (element / 2, leaf, step lo, step hi), words
 // (0, 1) for even elements and (2, 3) for odd ones, the counterpart of the
-// TPU's pltpu.prng_random_bits.  The update uses __fmul_rn/__fadd_rn/
-// __fsub_rn so that nvcc does not contract it into FMAs: it rounds exactly
-// as PyTorch's eager ops round the plain version, and logf/cosf/sqrtf are
-// the functions PyTorch's CUDA log/cos/sqrt call.  p may alias p_out (an
-// in-place update): each element is read before it is written, by the same
-// thread.
+// TPU's pltpu.prng_random_bits.  Both updates draw the same noise for the
+// same (seed, leaf, step), so at m == 1 they are bitwise equal.  The update
+// uses __fmul_rn/__fadd_rn/__fsub_rn so that nvcc does not contract it into
+// FMAs: it rounds exactly as PyTorch's eager ops round the plain version,
+// and logf/cosf/sqrtf are the functions PyTorch's CUDA log/cos/sqrt call.
+// p may alias p_out (an in-place update): each element is read before it
+// is written, by the same thread.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -44,9 +49,23 @@ constexpr unsigned PHILOX_W0 = 0x9E3779B9u, PHILOX_W1 = 0xBB67AE85u;
 constexpr unsigned SR_SALT = 0x9E3779B9u;
 constexpr float TWO_PI = 6.28318530717958647692f;  // f32(2 pi), as the reference rounds it
 
+// eps_minv and decay serve the scalar-mass update, ef (= eps * V) the
+// preconditioned one; the rest serve both.
 struct Scalars {
-  float eps_minv, decay, eps, coupling, sigma_p;
+  float eps_minv, decay, eps, coupling, sigma_p, ef;
 };
+
+// theta' and p' of one element; m is M^-1 when PRECOND, else unused.
+template <bool PRECOND>
+__device__ __forceinline__ void eq6(float t, float pp, float gg, float c, float m, float n,
+                                    const Scalars& s, float& t_new, float& p_new) {
+  const float drift = PRECOND ? __fmul_rn(s.eps, m) : s.eps_minv;
+  const float decay = PRECOND ? __fsub_rn(1.0f, __fmul_rn(s.ef, m)) : s.decay;
+  t_new = __fadd_rn(t, __fmul_rn(drift, pp));
+  float x = __fsub_rn(__fmul_rn(decay, pp), __fmul_rn(s.eps, gg));
+  x = __fsub_rn(x, __fmul_rn(s.coupling, __fsub_rn(t, c)));
+  p_new = __fadd_rn(x, __fmul_rn(s.sigma_p, n));
+}
 
 __device__ __forceinline__ uint4 philox(uint4 c, unsigned k0, unsigned k1) {
 #pragma unroll
@@ -83,18 +102,15 @@ __device__ __forceinline__ void store_bf16(__nv_bfloat16* x, int64_t i, float v,
   }
 }
 
-// One element of one chain: e is its flat index in the leaf, j its index
-// in the chain (for c~).
-template <typename T, bool PHILOX, bool SR>
-__device__ __forceinline__ void update_one(const T* theta, const T* p, const float* g, float c,
-                                           T* theta_out, T* p_out, int64_t e, unsigned b1,
-                                           unsigned b2, const Scalars& s) {
+// One element of one chain: e is its flat index in the leaf, c its c~.
+template <typename T, bool PRECOND, bool SR>
+__device__ __forceinline__ void update_one(const T* theta, const T* p, const float* g,
+                                           const float* minv, float c, T* theta_out, T* p_out,
+                                           int64_t e, unsigned b1, unsigned b2,
+                                           const Scalars& s) {
   const float t = load(theta, e), pp = load(p, e), gg = g[e];
-  const float n = box_muller(b1, b2);
-  const float t_new = __fadd_rn(t, __fmul_rn(s.eps_minv, pp));
-  float p_new = __fsub_rn(__fmul_rn(s.decay, pp), __fmul_rn(s.eps, gg));
-  p_new = __fsub_rn(p_new, __fmul_rn(s.coupling, __fsub_rn(t, c)));
-  p_new = __fadd_rn(p_new, __fmul_rn(s.sigma_p, n));
+  float t_new, p_new;
+  eq6<PRECOND>(t, pp, gg, c, PRECOND ? minv[e] : 0.0f, box_muller(b1, b2), s, t_new, p_new);
   if constexpr (sizeof(T) == 4) {
     store(theta_out, e, t_new, 0u);
     store(p_out, e, p_new, 0u);
@@ -120,10 +136,11 @@ __device__ __forceinline__ void bits_of(const unsigned* bits1, const unsigned* b
 }
 
 // Single-element path: any N, any alignment.
-template <typename T, bool PHILOX, bool SR>
+template <typename T, bool PRECOND, bool PHILOX, bool SR>
 __global__ void __launch_bounds__(THREADS)
 ec_update_scalar(const T* __restrict__ theta, const T* p, const float* __restrict__ g,
-                 const T* __restrict__ c, const unsigned* __restrict__ bits1,
+                 const float* __restrict__ minv, const T* __restrict__ c,
+                 const unsigned* __restrict__ bits1,
                  const unsigned* __restrict__ bits2, T* __restrict__ theta_out, T* p_out,
                  int64_t K, int64_t N, unsigned k0, unsigned k1, unsigned leaf, uint64_t step,
                  Scalars s) {
@@ -134,7 +151,7 @@ ec_update_scalar(const T* __restrict__ theta, const T* p, const float* __restric
       const int64_t e = k * N + j;
       unsigned b1, b2;
       bits_of<PHILOX>(bits1, bits2, e, k0, k1, leaf, step, b1, b2);
-      update_one<T, PHILOX, SR>(theta, p, g, cj, theta_out, p_out, e, b1, b2, s);
+      update_one<T, PRECOND, SR>(theta, p, g, minv, cj, theta_out, p_out, e, b1, b2, s);
     }
   }
 }
@@ -160,10 +177,11 @@ __device__ __forceinline__ unsigned bf16_bits(float v, unsigned bits, bool sr) {
 
 // Four-element path: N % 4 == 0 and 16-byte aligned pointers, so a group
 // of 4 never straddles two chains and every vector access is aligned.
-template <typename T, bool PHILOX, bool SR>
+template <typename T, bool PRECOND, bool PHILOX, bool SR>
 __global__ void __launch_bounds__(THREADS)
 ec_update_vec(const T* __restrict__ theta, const T* p, const float* __restrict__ g,
-              const T* __restrict__ c, const unsigned* __restrict__ bits1,
+              const float* __restrict__ minv, const T* __restrict__ c,
+              const unsigned* __restrict__ bits1,
               const unsigned* __restrict__ bits2, T* __restrict__ theta_out, T* p_out, int64_t K,
               int64_t N, unsigned k0, unsigned k1, unsigned leaf, uint64_t step, Scalars s) {
   using V = typename Vec4<T>::type;
@@ -174,10 +192,11 @@ ec_update_vec(const T* __restrict__ theta, const T* p, const float* __restrict__
     unpack(__ldg(reinterpret_cast<const V*>(c) + q), cv);
     for (int64_t k = 0; k < K; ++k) {
       const int64_t e0 = k * N + 4 * q;
-      float tv[4], pv[4], gv[4];
+      float tv[4], pv[4], gv[4], mv[4] = {0.0f, 0.0f, 0.0f, 0.0f};
       unpack(__ldg(reinterpret_cast<const V*>(theta + e0)), tv);
       unpack(*reinterpret_cast<const V*>(p + e0), pv);
       unpack(__ldg(reinterpret_cast<const float4*>(g + e0)), gv);
+      if (PRECOND) unpack(__ldg(reinterpret_cast<const float4*>(minv + e0)), mv);
       unsigned b1[4], b2[4];
       if (PHILOX) {
         const uint4 r0 = philox(make_uint4((unsigned)(e0 >> 1), leaf, (unsigned)step,
@@ -194,13 +213,8 @@ ec_update_vec(const T* __restrict__ theta, const T* p, const float* __restrict__
       }
       float tn[4], pn[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float n = box_muller(b1[i], b2[i]);
-        tn[i] = __fadd_rn(tv[i], __fmul_rn(s.eps_minv, pv[i]));
-        float x = __fsub_rn(__fmul_rn(s.decay, pv[i]), __fmul_rn(s.eps, gv[i]));
-        x = __fsub_rn(x, __fmul_rn(s.coupling, __fsub_rn(tv[i], cv[i])));
-        pn[i] = __fadd_rn(x, __fmul_rn(s.sigma_p, n));
-      }
+      for (int i = 0; i < 4; ++i)
+        eq6<PRECOND>(tv[i], pv[i], gv[i], cv[i], mv[i], box_muller(b1[i], b2[i]), s, tn[i], pn[i]);
       if constexpr (sizeof(T) == 4) {
         *reinterpret_cast<float4*>(theta_out + e0) = make_float4(tn[0], tn[1], tn[2], tn[3]);
         *reinterpret_cast<float4*>(p_out + e0) = make_float4(pn[0], pn[1], pn[2], pn[3]);
@@ -219,24 +233,47 @@ ec_update_vec(const T* __restrict__ theta, const T* p, const float* __restrict__
   }
 }
 
-template <typename T, bool PHILOX, bool SR>
-int launch(const void* theta, const void* p, const float* g, const void* c, const unsigned* b1,
-           const unsigned* b2, void* theta_out, void* p_out, int64_t K, int64_t N, bool vec,
-           uint64_t seed, unsigned leaf, uint64_t step, Scalars s, cudaStream_t st) {
+template <typename T, bool PRECOND, bool PHILOX, bool SR>
+int launch(const void* theta, const void* p, const float* g, const float* minv, const void* c,
+           const unsigned* b1, const unsigned* b2, void* theta_out, void* p_out, int64_t K,
+           int64_t N, bool vec, uint64_t seed, unsigned leaf, uint64_t step, Scalars s,
+           cudaStream_t st) {
   const int64_t items = vec ? N / 4 : N;
   const int64_t want = (items + THREADS - 1) / THREADS;
   const int blocks = (int)(want < 132 * 16 ? (want > 0 ? want : 1) : 132 * 16);
   const unsigned k0 = (unsigned)seed, k1 = (unsigned)(seed >> 32);
   if (vec) {
-    ec_update_vec<T, PHILOX, SR><<<blocks, THREADS, 0, st>>>(
-        (const T*)theta, (const T*)p, g, (const T*)c, b1, b2, (T*)theta_out, (T*)p_out, K, N,
+    ec_update_vec<T, PRECOND, PHILOX, SR><<<blocks, THREADS, 0, st>>>(
+        (const T*)theta, (const T*)p, g, minv, (const T*)c, b1, b2, (T*)theta_out, (T*)p_out, K, N,
         k0, k1, leaf, step, s);
   } else {
-    ec_update_scalar<T, PHILOX, SR><<<blocks, THREADS, 0, st>>>(
-        (const T*)theta, (const T*)p, g, (const T*)c, b1, b2, (T*)theta_out, (T*)p_out, K, N,
+    ec_update_scalar<T, PRECOND, PHILOX, SR><<<blocks, THREADS, 0, st>>>(
+        (const T*)theta, (const T*)p, g, minv, (const T*)c, b1, b2, (T*)theta_out, (T*)p_out, K, N,
         k0, k1, leaf, step, s);
   }
   return (int)cudaGetLastError();
+}
+
+// Picks the instantiation for the dtype, the noise mode and the rounding.
+template <bool PRECOND>
+int dispatch(const void* theta, const void* p, const float* g, const float* minv, const void* c,
+             const unsigned* bits1, const unsigned* bits2, void* theta_out, void* p_out,
+             long long K, long long N, int is_bf16, int stochastic_round, int vec,
+             unsigned long long seed, unsigned leaf, unsigned long long step, Scalars s,
+             void* stream) {
+  if (K < 1 || N < 1) return (int)cudaErrorInvalidValue;
+  if (PRECOND && minv == nullptr) return (int)cudaErrorInvalidValue;
+  const bool philox_mode = bits1 == nullptr;
+  if (!philox_mode && bits2 == nullptr) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const bool sr = stochastic_round != 0;
+#define EC_LAUNCH(T, PH, SRV)                                                                   \
+  launch<T, PRECOND, PH, SRV>(theta, p, g, minv, c, bits1, bits2, theta_out, p_out, K, N,       \
+                              vec != 0, seed, leaf, step, s, st)
+  if (!is_bf16) return philox_mode ? EC_LAUNCH(float, true, false) : EC_LAUNCH(float, false, false);
+  if (philox_mode) return sr ? EC_LAUNCH(__nv_bfloat16, true, true) : EC_LAUNCH(__nv_bfloat16, true, false);
+  return sr ? EC_LAUNCH(__nv_bfloat16, false, true) : EC_LAUNCH(__nv_bfloat16, false, false);
+#undef EC_LAUNCH
 }
 
 }  // namespace
@@ -248,16 +285,20 @@ extern "C" int fused_ec_update(const void* theta, const void* p, const float* g,
                                unsigned leaf, unsigned long long step, float eps_minv,
                                float decay, float eps, float coupling, float sigma_p,
                                void* stream) {
-  if (K < 1 || N < 1) return (int)cudaErrorInvalidValue;
-  const Scalars s{eps_minv, decay, eps, coupling, sigma_p};
-  const bool philox_mode = bits1 == nullptr;
-  if (!philox_mode && bits2 == nullptr) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  const bool sr = stochastic_round != 0;
-#define EC_LAUNCH(T, PH, SRV) \
-  launch<T, PH, SRV>(theta, p, g, c, bits1, bits2, theta_out, p_out, K, N, vec != 0, seed, leaf, step, s, st)
-  if (!is_bf16) return philox_mode ? EC_LAUNCH(float, true, false) : EC_LAUNCH(float, false, false);
-  if (philox_mode) return sr ? EC_LAUNCH(__nv_bfloat16, true, true) : EC_LAUNCH(__nv_bfloat16, true, false);
-  return sr ? EC_LAUNCH(__nv_bfloat16, false, true) : EC_LAUNCH(__nv_bfloat16, false, false);
-#undef EC_LAUNCH
+  const Scalars s{eps_minv, decay, eps, coupling, sigma_p, 0.0f};
+  return dispatch<false>(theta, p, g, nullptr, c, bits1, bits2, theta_out, p_out, K, N, is_bf16,
+                         stochastic_round, vec, seed, leaf, step, s, stream);
+}
+
+// minv: (K, N) f32, the per-chain diagonal M^-1.
+extern "C" int fused_precond_ec_update(const void* theta, const void* p, const float* g,
+                                       const float* minv, const void* c, const unsigned* bits1,
+                                       const unsigned* bits2, void* theta_out, void* p_out,
+                                       long long K, long long N, int is_bf16,
+                                       int stochastic_round, int vec, unsigned long long seed,
+                                       unsigned leaf, unsigned long long step, float eps,
+                                       float ef, float coupling, float sigma_p, void* stream) {
+  const Scalars s{0.0f, 0.0f, eps, coupling, sigma_p, ef};
+  return dispatch<true>(theta, p, g, minv, c, bits1, bits2, theta_out, p_out, K, N, is_bf16,
+                        stochastic_round, vec, seed, leaf, step, s, stream);
 }

@@ -17,7 +17,8 @@ import torch.nn.functional as F
 
 from . import ref
 
-launches = {"flash_attention": 0, "paged_attention": 0, "bma_select": 0, "fused_ec_update": 0}
+launches = {"flash_attention": 0, "paged_attention": 0, "bma_select": 0, "fused_ec_update": 0,
+            "fused_precond_ec_update": 0}
 
 BMA_CHUNK = 4096  # vocabulary elements per bma_select block
 _ATTN_DTYPES = (torch.float32, torch.bfloat16)
@@ -189,17 +190,10 @@ def _chain_layout(theta, c_tilde):
                      f"{tuple(theta.shape)} nor one chain of it")
 
 
-def fused_ec_update(theta, p, g, c_tilde, *, eps, friction, mass, alpha, sigma_p,
-                    stochastic_round=True, bits=None, seed=None, leaf=0, step=0, p_out=None):
-    """One leaf's fused Eq. 6 update.  Returns (theta', p') in theta's and
-    p's dtypes.
-
-    Noise: ``bits=(bits1, bits2)``, int32 tensors of uint32 bit patterns
-    with at least ``theta.numel()`` elements in the leaf's flat order
-    (parity mode), or ``seed`` (a 64-bit key) for Philox bits countered by
-    ``(leaf, step, element)`` (production mode; on the CPU the plain
-    version computes the same bits).  ``p_out`` (p itself, for an in-place
-    update) receives p'."""
+def _ec_operands(theta, p, g, c_tilde, bits, seed, p_out):
+    """The checks both fused updates share.  Returns (on_card, K, N, g in
+    f32, bits1, bits2), the bits flat and contiguous, or both None in
+    Philox mode."""
     on_card = _on_card(theta, p, g, c_tilde)
     if (bits is None) == (seed is None):
         raise ValueError("pass exactly one of bits= (parity mode) or seed= (Philox mode)")
@@ -216,6 +210,7 @@ def fused_ec_update(theta, p, g, c_tilde, *, eps, friction, mass, alpha, sigma_p
     if p_out is not None and (p_out.shape != p.shape or p_out.dtype != p.dtype
                               or p_out.device != p.device or not p_out.is_contiguous()):
         raise ValueError("p_out must be a contiguous tensor like p")
+    b1 = b2 = None
     if bits is not None:
         b1, b2 = bits
         for b in (b1, b2):
@@ -224,29 +219,80 @@ def fused_ec_update(theta, p, g, c_tilde, *, eps, friction, mass, alpha, sigma_p
         b1, b2 = b1.reshape(-1)[:n].contiguous(), b2.reshape(-1)[:n].contiguous()
     elif not 0 <= int(seed) < 1 << 64 or (n + 1) // 2 > 1 << 32:
         raise ValueError("seed must be a 64-bit key and the leaf under 2^33 elements")
+    return on_card, K, N, g, b1, b2
+
+
+def _plain_bits(b1, b2, seed, leaf, step, shape):
+    """The bits the plain version takes: the given ones, or the Philox bits
+    of (seed, leaf, step), shaped like theta."""
+    if b1 is None:
+        n = math.prod(shape)
+        h1, h2 = ref.philox_bits(int(seed), int(leaf), int(step), n)
+        b1, b2 = torch.from_numpy(h1.view(np.int32)), torch.from_numpy(h2.view(np.int32))
+    return b1.view(shape), b2.view(shape)
+
+
+def fused_ec_update(theta, p, g, c_tilde, *, eps, friction, mass, alpha, sigma_p,
+                    stochastic_round=True, bits=None, seed=None, leaf=0, step=0, p_out=None):
+    """One leaf's fused Eq. 6 update.  Returns (theta', p') in theta's and
+    p's dtypes.
+
+    Noise: ``bits=(bits1, bits2)``, int32 tensors of uint32 bit patterns
+    with at least ``theta.numel()`` elements in the leaf's flat order
+    (parity mode), or ``seed`` (a 64-bit key) for Philox bits countered by
+    ``(leaf, step, element)`` (production mode; on the CPU the plain
+    version computes the same bits).  ``p_out`` (p itself, for an in-place
+    update) receives p'."""
+    on_card, K, N, g, b1, b2 = _ec_operands(theta, p, g, c_tilde, bits, seed, p_out)
     scalars = ref.ec_scalars(eps, friction, 1.0 / mass, alpha, sigma_p)
-    if n == 0:
+    if theta.numel() == 0:
         return theta.clone(), (p_out if p_out is not None else p.clone())
     if not on_card:
-        if bits is None:
-            h1, h2 = ref.philox_bits(int(seed), int(leaf), int(step), n)
-            b1 = torch.from_numpy(h1.view(np.int32))
-            b2 = torch.from_numpy(h2.view(np.int32))
-        shape = theta.shape
-        t_new, p_new = ref.fused_ec_update(theta, p, g, c_tilde, b1.view(shape), b2.view(shape),
-                                           scalars=scalars, stochastic_round=stochastic_round)
-        if p_out is not None:
-            p_new = p_out.copy_(p_new)
-        return t_new, p_new
+        b1, b2 = _plain_bits(b1, b2, seed, leaf, step, theta.shape)
+        t_new, p_new = ref.fused_ec_update(theta, p, g, c_tilde, b1, b2, scalars=scalars,
+                                           stochastic_round=stochastic_round)
+        return t_new, (p_out.copy_(p_new) if p_out is not None else p_new)
     from . import fused_ecsghmc as _fe
 
     t_new = torch.empty_like(theta)
     p_new = p_out if p_out is not None else torch.empty_like(p)
-    _fe.launch(theta, p, g, c_tilde, b1 if bits is not None else None,
-               b2 if bits is not None else None, t_new, p_new, K=K, N=N,
+    _fe.launch(theta, p, g, c_tilde, b1, b2, t_new, p_new, K=K, N=N,
                seed=0 if seed is None else int(seed), leaf=int(leaf), step=int(step),
                scalars=scalars, stochastic_round=stochastic_round)
     launches["fused_ec_update"] += 1
+    return t_new, p_new
+
+
+def fused_precond_ec_update(theta, p, g, c_tilde, minv, *, eps, friction, alpha, sigma_p,
+                            stochastic_round=True, bits=None, seed=None, leaf=0, step=0,
+                            p_out=None):
+    """One leaf's preconditioned fused Eq. 6 update: ``fused_ec_update``
+    with the scalar mass replaced by ``minv``, the per-chain diagonal
+    M^-1, an f32 tensor shaped like theta (not broadcast).  The same noise
+    modes: for the same (seed, leaf, step) both updates draw the same
+    bits, so at M^-1 == 1 they agree bit for bit."""
+    on_card, K, N, g, b1, b2 = _ec_operands(theta, p, g, c_tilde, bits, seed, p_out)
+    if minv.dtype != torch.float32 or minv.shape != theta.shape or minv.device != theta.device:
+        raise ValueError(f"minv must be an f32 tensor shaped like theta {tuple(theta.shape)} on "
+                         f"{theta.device}, got {minv.dtype} {tuple(minv.shape)} on {minv.device}")
+    _require_contiguous(minv=minv)
+    scalars = ref.precond_scalars(eps, friction, alpha, sigma_p)
+    if theta.numel() == 0:
+        return theta.clone(), (p_out if p_out is not None else p.clone())
+    if not on_card:
+        b1, b2 = _plain_bits(b1, b2, seed, leaf, step, theta.shape)
+        t_new, p_new = ref.fused_precond_ec_update(theta, p, g, c_tilde, minv, b1, b2,
+                                                   scalars=scalars,
+                                                   stochastic_round=stochastic_round)
+        return t_new, (p_out.copy_(p_new) if p_out is not None else p_new)
+    from . import fused_ecsghmc as _fe
+
+    t_new = torch.empty_like(theta)
+    p_new = p_out if p_out is not None else torch.empty_like(p)
+    _fe.launch_precond(theta, p, g, minv, c_tilde, b1, b2, t_new, p_new, K=K, N=N,
+                       seed=0 if seed is None else int(seed), leaf=int(leaf), step=int(step),
+                       scalars=scalars, stochastic_round=stochastic_round)
+    launches["fused_precond_ec_update"] += 1
     return t_new, p_new
 
 
@@ -259,18 +305,30 @@ def fused_ec_update_tree(params, momentum, grads, center_stale, *, bits=None, se
     is written by the kernel and dropped after its launch: the one caller,
     EC-SGHMC, takes the position step from its ``updates``, as the
     reference does, so only one leaf's theta' is ever held."""
-    from repro_torch.models.common import tree_leaves
-
-    leaves_b = _pair_leaves(bits) if bits is not None else [None] * len(tree_leaves(params))
-    for i, (t, p, g, c, b) in enumerate(zip(tree_leaves(params), tree_leaves(momentum),
-                                            tree_leaves(grads), tree_leaves(center_stale),
-                                            leaves_b)):
-        fused_ec_update(t, p, g, c, bits=b, seed=seed, leaf=i, step=step, p_out=p, **hyper)
+    _tree_launches(fused_ec_update, (params, momentum, grads, center_stale), bits, seed, step,
+                   hyper)
     return momentum
 
 
-def _pair_leaves(tree):
-    """Leaves of a tree whose leaves are (bits1, bits2) pairs."""
-    if isinstance(tree, dict):
-        return [leaf for k in sorted(tree) for leaf in _pair_leaves(tree[k])]
-    return [tree]
+def fused_precond_ec_update_tree(params, momentum, grads, center_stale, minv, *, bits=None,
+                                 seed=None, step=0, **hyper):
+    """Tree-level preconditioned update, as ``fused_ec_update_tree`` with a
+    tree of per-leaf M^-1 (f32, shaped like params): one launch per leaf,
+    p' over p, theta' dropped, the leaf's flatten index as its Philox
+    ``leaf``, so the two tree forms see the same per-leaf noise.  Returns
+    the momentum tree."""
+    _tree_launches(fused_precond_ec_update, (params, momentum, grads, center_stale, minv), bits,
+                   seed, step, hyper)
+    return momentum
+
+
+def _tree_launches(update, trees, bits, seed, step, hyper):
+    """``update`` on every leaf of ``trees`` (params, momentum, ... in the
+    update's argument order), with p' written over the momentum leaf.  A
+    (bits1, bits2) pair is a leaf of the bits tree."""
+    from repro_torch.models.common import tree_leaves
+
+    leaves = list(zip(*map(tree_leaves, trees)))
+    leaves_b = tree_leaves(bits) if bits is not None else [None] * len(leaves)
+    for i, (args, b) in enumerate(zip(leaves, leaves_b)):
+        update(*args, bits=b, seed=seed, leaf=i, step=step, p_out=args[1], **hyper)

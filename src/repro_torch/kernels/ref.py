@@ -121,6 +121,16 @@ def ec_scalars(eps, friction, minv, alpha, sigma_p):
     )
 
 
+def precond_scalars(eps, friction, alpha, sigma_p):
+    """The four scalars of the preconditioned Eq. 6 update, (eps, eps*V,
+    eps*alpha, sigma_p), formed in float32 as ``ec_scalars`` forms them, so
+    that at M^-1 == 1 the two updates round alike.  The preconditioned
+    kernel's arguments, its plain version and ``core.ec_sghmc.p_step`` with
+    an array M^-1 take their scalars from here."""
+    e = _F32(eps)
+    return float(e), float(e * _F32(friction)), float(e * _F32(alpha)), float(_F32(sigma_p))
+
+
 def philox_bits(seed: int, leaf: int, step: int, n: int):
     """The production-mode noise bits of the fused kernel for the first
     ``n`` elements of a leaf, as two uint32 numpy arrays.  Philox-4x32-10
@@ -188,6 +198,31 @@ def fused_ec_update(theta, p, g, c_tilde, bits1, bits2, *, scalars, stochastic_r
     noise = box_muller(bits1, bits2)
     theta_new = t32 + eps_minv * p32
     p_new = decay * p32 - eps * g.float() - coupling * (t32 - c_tilde.float()) + sigma_p * noise
+    return _store(theta, p, theta_new, p_new, bits1, bits2, stochastic_round)
+
+
+def fused_precond_ec_update(theta, p, g, c_tilde, minv, bits1, bits2, *, scalars,
+                            stochastic_round):
+    """Plain version of the preconditioned fused update, ``minv`` the f32
+    diagonal M^-1 shaped like theta:
+
+        theta' = theta + (eps*M^-1) * p
+        p'     = (1 - eps*V*M^-1) * p - eps * g - coupling * (theta - c̃) + sigma_p * n
+
+    ``scalars`` is ``precond_scalars(...)``; otherwise as
+    ``fused_ec_update``."""
+    eps, ef, coupling, sigma_p = scalars
+    t32, p32 = theta.float(), p.float()
+    noise = box_muller(bits1, bits2)
+    theta_new = t32 + (minv * eps) * p32
+    p_new = ((1.0 - ef * minv) * p32 - eps * g.float() - coupling * (t32 - c_tilde.float())
+             + sigma_p * noise)
+    return _store(theta, p, theta_new, p_new, bits1, bits2, stochastic_round)
+
+
+def _store(theta, p, theta_new, p_new, bits1, bits2, stochastic_round):
+    """(theta', p') in theta's and p's dtypes: stochastic rounding to bf16
+    with the kernel's bits when that is on, else a plain cast."""
     if stochastic_round and theta.dtype == torch.bfloat16:
         sr = bits1 ^ bits2
         return (stochastic_round_bf16(theta_new, sr),

@@ -13,7 +13,11 @@ contract:
   step updates params in place);
 * the host callback ``on_chunk`` runs only at CHUNK boundaries, which is
   where ``train/loop.py`` logs and stops; chunking is invisible to the
-  dynamics.
+  dynamics;
+* the adaptation configuration: a ``sampler_factory(hyper)`` builds the
+  sampler from an UNSWEPT ``hyper`` dict once per chunk, and
+  ``adapt_fn(step_end, carry, hyper)`` may replace ``hyper`` at each chunk
+  boundary (``ess_feedback_adapter`` closes the FeedbackESS loop there).
 
 Key modes (``key_mode``), as in the reference, over ``core.rng`` keys:
 
@@ -24,17 +28,17 @@ Key modes (``key_mode``), as in the reference, over ``core.rng`` keys:
 
 The carry is CONSUMED: samplers and ``apply_updates`` update tensors in
 place, so the params and state passed to ``run`` are the ones advanced.
-Not ported yet (``NotImplementedError``): ``sampler_factory``/``hyper``
-sweeps and ``adapt_fn`` (with the adaptive tier), ``stream`` (with the
-serving refresher), ``run_sharded``/``lower_sharded`` (multi-GPU) and
-``ess_feedback_adapter``.  Capturing a chunk as a CUDA graph is later
-performance work.
+Not ported yet (``NotImplementedError``): swept runs (``sweep=True``, a
+vmapped axis of hyperparameters), ``stream`` (with the serving
+refresher) and ``run_sharded``/``lower_sharded`` (multi-GPU).  Capturing a
+chunk as a CUDA graph is later performance work.
 """
 from __future__ import annotations
 
 import time
 from typing import Any, Callable, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core import rng as rnglib
@@ -43,6 +47,7 @@ from repro_torch.diagnostics import (
     BatchMeansState,
     MomentState,
     batch_ess_add,
+    batch_ess_estimate,
     batch_ess_init,
     welford_add,
     welford_init,
@@ -94,10 +99,13 @@ def _copy(tree):
 class ChainExecutor:
     """Runs sampling in chunks of at most ``chunk_steps`` steps.
 
-    Exactly one of ``step_fn`` / ``sampler`` drives the dynamics:
+    Exactly one of ``step_fn`` / ``sampler`` / ``sampler_factory`` drives
+    the dynamics:
 
     * ``step_fn(params, state, batch, rng) -> (params, state, metrics)``;
-    * ``sampler`` + ``grad_fn(targets, batch) -> grads | (grads, metrics)``.
+    * ``sampler`` + ``grad_fn(targets, batch) -> grads | (grads, metrics)``;
+    * ``sampler_factory(hyper) -> Sampler`` + ``grad_fn``: as above, the
+      sampler built from ``run``'s ``hyper`` at the start of every chunk.
 
     ``batch_fn(step)`` gives each step's batch (``moments`` accumulates
     the params themselves).  With ``trace_fn``, ``chunk_steps`` and ``num_steps``
@@ -124,11 +132,9 @@ class ChainExecutor:
         chunk_steps: int = 256,
         key_mode: str = "keys",
     ):
-        if sampler_factory is not None:
-            raise NotImplementedError("sampler_factory (hyperparameter sweeps) is not ported yet")
-        if (step_fn is None) == (sampler is None):
-            raise ValueError("exactly one of step_fn / sampler")
-        if sampler is not None and grad_fn is None:
+        if sum(x is not None for x in (step_fn, sampler, sampler_factory)) != 1:
+            raise ValueError("exactly one of step_fn / sampler / sampler_factory")
+        if step_fn is None and grad_fn is None:
             raise ValueError("sampler mode needs grad_fn")
         if key_mode not in ("keys", "fold", "carry"):
             raise ValueError(f"unknown key_mode {key_mode!r}")
@@ -138,6 +144,7 @@ class ChainExecutor:
             raise ValueError("chunk_steps must be a multiple of thin when tracing")
         self.step_fn = step_fn
         self.sampler = sampler
+        self.sampler_factory = sampler_factory
         self.grad_fn = grad_fn
         self.batch_fn = batch_fn
         self.trace_fn = trace_fn
@@ -150,11 +157,12 @@ class ChainExecutor:
         self.chunk_steps = int(chunk_steps)
         self.key_mode = key_mode
 
-    def _step(self):
-        """(step, stats_fn)."""
+    def _step(self, hyper):
+        """(step, stats_fn) for the chunk's ``hyper``."""
         if self.step_fn is not None:
             return self.step_fn, None
-        sampler, grad_fn = self.sampler, self.grad_fn
+        sampler = self.sampler if self.sampler is not None else self.sampler_factory(hyper)
+        grad_fn = self.grad_fn
 
         def step(params, state, batch, rng):
             targets = sampler.grad_targets(state, params) if sampler.grad_targets else params
@@ -187,18 +195,27 @@ class ChainExecutor:
         ``start_step``: absolute index of the first step (resume; drives
         ``fold_in`` and ``batch_fn``).  ``on_chunk(step_end, params, state,
         outs)`` runs at every chunk boundary; returning False stops the run.
+
+        ``hyper``: the dict ``sampler_factory`` builds the sampler from;
+        pass ``sweep=False`` with it (a hyper without ``sweep=False`` means
+        a swept run, which is not ported).  ``adapt_fn(step_end, carry,
+        hyper) -> hyper | None`` runs at every chunk boundary but the last,
+        after ``on_chunk``; a non-None return replaces ``hyper`` for the
+        chunks after it.  ``carry`` is a dict of the run's state:
+        ``params``, ``state``, ``t`` (the absolute step), ``wf`` and
+        ``ess`` (the in-carry accumulators, or None).
         """
-        if hyper is not None or sweep:
-            raise NotImplementedError("hyper / sweep runs are not ported yet")
-        if adapt_fn is not None:
-            raise NotImplementedError("adapt_fn waits for the adaptive tier in the port")
+        sweep = (hyper is not None) if sweep is None else bool(sweep)
+        if sweep:
+            raise NotImplementedError("swept hyper runs (a vmapped S axis) are not ported yet")
+        if self.sampler_factory is not None and hyper is None:
+            raise ValueError("sampler_factory mode needs hyper=")
         if self.key_mode == "keys" and keys is None:
             raise ValueError("key_mode='keys' needs keys=")
         if self.key_mode in ("fold", "carry") and key is None:
             raise ValueError(f"key_mode={self.key_mode!r} needs key=")
         if self.trace_fn is not None and num_steps % self.thin != 0:
             raise ValueError("num_steps must be a multiple of thin when tracing")
-        step, stats_fn = self._step()
         wf = ess = None
         if self.moments:
             wf = welford_init(params)
@@ -208,8 +225,10 @@ class ChainExecutor:
         traces, stats, metrics = [], [], {}
         t_run, t_abs = 0, int(start_step)
         t0 = time.perf_counter()
-        while t_run < num_steps:
+        stopped = False
+        while t_run < num_steps and not stopped:
             n = min(self.chunk_steps, num_steps - t_run)
+            step, stats_fn = self._step(hyper)
             every = self.thin if self.trace_fn is not None else n
             outs = {"metrics": []}
             if self.trace_fn is not None:
@@ -244,7 +263,12 @@ class ChainExecutor:
             if "stats" in outs:
                 stats.append(outs["stats"])
             if on_chunk is not None and on_chunk(t_abs, params, state, outs) is False:
-                break
+                stopped = True
+            if adapt_fn is not None and t_run < num_steps and not stopped:
+                carry = {"params": params, "state": state, "t": t_abs, "wf": wf, "ess": ess}
+                new_hyper = adapt_fn(t_abs, carry, hyper)
+                if new_hyper is not None:
+                    hyper = new_hyper
         _sync(params)
         wall = time.perf_counter() - t0
         cat = lambda ts: tree_map(lambda *xs: torch.cat(xs), *ts)
@@ -271,7 +295,28 @@ class ChainExecutor:
 
 
 def ess_feedback_adapter(controller, hyper_key: str = "step_size"):
-    raise NotImplementedError("ess_feedback_adapter waits for the adaptive tier in the port")
+    """Bridge a ``core.FeedbackESS`` controller to the executor's
+    ``adapt_fn`` hook: at each chunk boundary, turn the in-carry
+    batch-means ESS into an ESS-per-step rate, feed it to
+    ``controller.update``, and hand the controller's new value back as
+    ``hyper[hyper_key]`` (a ``numpy.float32``).  Needs an executor with
+    ``ess_probe_fn`` and a ``sampler_factory`` that reads
+    ``hyper[hyper_key]``."""
+
+    def adapt(step_end, carry, hyper):
+        es = carry.get("ess")
+        if es is None:
+            raise ValueError("ess_feedback_adapter requires an executor with ess_probe_fn")
+        count = float(es.count)
+        if count < 2.0 * float(es.batch_len):
+            return None  # need >= 2 complete batches for a defensible estimate
+        ess = batch_ess_estimate(es).cpu().numpy()
+        controller.update(float(np.mean(ess)) / max(count, 1.0), step=step_end)
+        new_hyper = dict(hyper or {})
+        new_hyper[hyper_key] = np.float32(controller.value)
+        return new_hyper
+
+    return adapt
 
 
 def rollout(

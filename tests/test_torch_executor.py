@@ -133,14 +133,20 @@ def test_unported_modes_raise(call):
     samp = _sampler()
     mk = lambda: ChainExecutor(sampler=samp, grad_fn=lambda t, b: _grad(t), key_mode="fold")
     p0 = torch.zeros(4, 3)
+    factory = lambda: ChainExecutor(sampler_factory=lambda h: samp, grad_fn=lambda t, b: t,
+                                    key_mode="fold", ess_probe_fn=lambda p: p[0])
+    # sampler_factory, adapt_fn and ess_feedback_adapter are ported for
+    # unswept hyper; the swept runs (hyper without sweep=False) still wait
     calls = {
-        "factory": lambda: ChainExecutor(sampler_factory=lambda h: samp, grad_fn=lambda t, b: t),
+        "factory": lambda: factory().run(p0, samp.init(p0), num_steps=1, key=1, hyper={}),
         "hyper": lambda: mk().run(p0, samp.init(p0), num_steps=1, key=1, hyper={}),
-        "adapt": lambda: mk().run(p0, samp.init(p0), num_steps=1, key=1, adapt_fn=lambda *a: None),
+        "adapt": lambda: mk().run(p0, samp.init(p0), num_steps=1, key=1, hyper={}, sweep=True,
+                                  adapt_fn=lambda *a: None),
         "stream": lambda: mk().stream(p0, None, num_steps=1, key=1),
         "sharded": lambda: mk().run_sharded(p0, None, num_steps=1, key=1, mesh=None),
         "lower": lambda: mk().lower_sharded(p0, None, num_steps=1, key=1, mesh=None),
-        "feedback": lambda: ess_feedback_adapter(None),
+        "feedback": lambda: factory().run(p0, samp.init(p0), num_steps=2, key=1, hyper={},
+                                          adapt_fn=ess_feedback_adapter(None)),
         "sweep": lambda: rollout(samp, _grad, p0, num_steps=1, keys=[1], sweep=True),
     }
     with pytest.raises(NotImplementedError):
