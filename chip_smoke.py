@@ -8,11 +8,13 @@ Run from the repository root with no arguments:
 It imports torch, numpy and repro_torch only, and:
 
 1. prints the card (``nvidia-smi`` name and power limit);
-2. builds the four CUDA kernels from ``src/repro_torch/kernels/csrc`` into
+2. builds the five CUDA sources from ``src/repro_torch/kernels/csrc`` into
    ``build/kernels/`` (one nvcc per source, in parallel);
 3. holds each kernel against its plain PyTorch version on the card at its
    main path's shapes, and times kernel, plain version and (flash) the
-   PyTorch library call, beside the least time the card could take;
+   PyTorch library call, beside the least time the card could take: flash
+   at qwen3's head_dim 128 and at recurrentgemma's 256 (``[flash256]``),
+   and the RG-LRU scan bit for bit up to a 32k-token prompt (``[rglru]``);
 4. the sampler: checks the fused EC-SGHMC kernel's in-kernel Philox noise
    against N(0, 1) over the 2.38e9 elements of a qwen3-0.6b K=4 step, runs
    fused EC-SGHMC on a Gaussian target against the exact stationary
@@ -35,7 +37,13 @@ It imports torch, numpy and repro_torch only, and:
    target against the exact oracle, and trains the same K=4 qwen3-0.6b
    chains for 8 scale-adapted EC-SGHMC steps across the burn-in freeze,
    then profiles two more;
-8. prints one JSON line of the five kernels, the card line, and the result
+8. serves the K=4-member ensemble of recurrentgemma-2b at full width
+   (``[slice-hybrid]``) through ``ServeEngine.run`` on the dense engine
+   (paged is refused for RG-LRU layers), greedily and at T=0.7/top-k 50,
+   checks the launch counts of the scan, flash and bma_select kernels,
+   profiles a short run, and holds the SMOKE hybrid engine on the card
+   against the CPU;
+9. prints one JSON line of the six kernels, the card line, and the result
    line.
 
 TF32 is off for matmuls and cuDNN (``allow_tf32 = False``), so f32
@@ -64,7 +72,7 @@ F32_FLOPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
 
 FLASH_ATOL = 2e-2  # bf16 output: a few bf16 ulps at |o| ~ 1
 PAGED_ATOL = 2e-2
-BMA_LOGP_ATOL = 1e-4  # f32 logsumexp over 151936 terms in another order
+BMA_LOGP_ATOL = 1e-4  # f32 logsumexp over up to 256000 terms in another order
 SLICE_FIRST_LOGP_ATOL = 1e-3  # paged vs dense engine, first token's mixture row
 SMOKE_LOGP_ATOL = 1e-4  # whole engine, card vs CPU, f32 SMOKE config
 SERVING_KERNELS = ("flash_attention", "paged_attention", "bma_select")
@@ -109,36 +117,53 @@ def bound(nbytes: float, flops: float, flops_rate: float) -> tuple[float, str]:
 # ---------------------------------------------------------------------------
 
 
-def phase_flash(torch, ops, ref, F):
+def phase_flash(torch, ops, ref, F, *, Hq=16, Hkv=8, d=128, cases=((64, None), (128, None)),
+                label="flash", seed=11):
+    """The flash kernel against its plain version at a model's prefill
+    shapes, one row for each (S, window) of ``cases`` (qwen3-0.6b by
+    default; ``[flash256]`` is recurrentgemma-2b's head_dim 256 with MQA and
+    its window, and a window shorter than S), timed beside SDPA and the
+    bound.  SDPA gets the causal flag where the window cuts nothing, else
+    the same causal band as a boolean mask."""
     import repro_torch.kernels.flash_attention as fa
 
-    g = torch.Generator(device="cuda").manual_seed(11)
+    g = torch.Generator(device="cuda").manual_seed(seed)
     rows = []
-    for S in (64, 128):
-        B, Hq, Hkv, d = 1, 16, 8, 128
+    for S, window in cases:
+        B = 1
         q = torch.randn((B, Hq, S, d), generator=g, device="cuda").to(torch.bfloat16)
         k = torch.randn((B, Hkv, S, d), generator=g, device="cuda").to(torch.bfloat16)
         v = torch.randn((B, Hkv, S, d), generator=g, device="cuda").to(torch.bfloat16)
         scale = 1.0 / math.sqrt(d)
-        got = ops.flash_attention(q, k, v, causal=True, scale=scale)
-        want = ref.attention(q, k, v, causal=True, scale=scale)
+        got = ops.flash_attention(q, k, v, causal=True, window=window, scale=scale)
+        want = ref.attention(q, k, v, causal=True, window=window, scale=scale)
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
         if not (err <= FLASH_ATOL and torch.isfinite(got).all()):
-            raise AssertionError(f"flash S={S}: max|kernel - plain| = {err} > {FLASH_ATOL}")
+            raise AssertionError(f"{label} S={S} window={window}: max|kernel - plain| = {err} "
+                                 f"> {FLASH_ATOL}")
         out = torch.empty_like(q)
-        ms = time_ms(torch, lambda: fa.launch(q, k, v, out, causal=True, window=None,
+        ms = time_ms(torch, lambda: fa.launch(q, k, v, out, causal=True, window=window,
                                               softcap=None, scale=scale))
-        plain = time_ms(torch, lambda: ref.attention(q, k, v, causal=True, scale=scale))
+        plain = time_ms(torch, lambda: ref.attention(q, k, v, causal=True, window=window,
+                                                     scale=scale))
+        pos = torch.arange(S, device="cuda")
+        lag = pos[:, None] - pos[None, :]
+        band = (lag >= 0) & (lag < (window if window is not None else S))
+        if window is None or window >= S:
+            sdpa = dict(is_causal=True)
+        else:
+            sdpa = dict(attn_mask=band)
         lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, scale=scale, enable_gqa=True))
+            q, k, v, scale=scale, enable_gqa=True, **sdpa))
+        pairs = int(band.sum().item())  # (query, key) pairs inside the causal band
         nbytes = 2 * (2 * B * Hq * S * d + 2 * B * Hkv * S * d)
-        flops = 4 * B * Hq * d * S * (S + 1) / 2  # causal: QK^T and PV over the lower triangle
+        flops = 4 * B * Hq * d * pairs  # QK^T and PV over the band
         b_ms, b_by = bound(nbytes, flops, BF16_FLOPS_PER_S)
-        log(f"[flash] B={B} Hq={Hq} Hkv={Hkv} S={S} d={d} bf16: max_abs_err={err:.3e} "
-            f"(atol {FLASH_ATOL}) kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa {lib:.4f} ms, "
-            f"bound {b_ms:.5f} ms ({b_by})")
-        rows.append(dict(S=S, err=err, ms=ms, plain_ms=plain, library_ms=lib,
+        log(f"[{label}] B={B} Hq={Hq} Hkv={Hkv} S={S} d={d} window={window} bf16: "
+            f"max_abs_err={err:.3e} (atol {FLASH_ATOL}) kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+            f"sdpa {lib:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
+        rows.append(dict(S=S, window=window, err=err, ms=ms, plain_ms=plain, library_ms=lib,
                          bound_ms=b_ms, bound_by=b_by))
     return rows
 
@@ -177,12 +202,16 @@ def phase_paged(torch, ops, ref):
     return dict(err=err, ms=ms, plain_ms=plain, library_ms=None, bound_ms=b_ms, bound_by=b_by)
 
 
-def phase_bma(torch, ops, ref):
+def phase_bma(torch, ops, ref, *, V=151936, label="bma", seed=13):
+    """The select kernel against its plain version at K=4, S=8 over a
+    model's vocabulary (qwen3-0.6b's by default; ``[bma256k]`` is
+    recurrentgemma-2b's, whose last 4096-chunk is ragged), in both modes,
+    greedy and at T=0.7/top-k 50."""
     import repro_torch.kernels.bma_select as bs_mod
     from repro_torch.serve.sampling import _top_k_mask, gumbel_noise
 
-    g = torch.Generator(device="cuda").manual_seed(13)
-    K, S, V = 4, 8, 151936
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    K, S = 4, 8
     logits = 3.0 * torch.randn((K, S, V), generator=g, device="cuda")
     gumbel = gumbel_noise((S, V), g, "cuda")
     rows = []
@@ -195,7 +224,7 @@ def phase_bma(torch, ops, ref):
             torch.cuda.synchronize()
             err = (logp - rlogp).abs().max().item()
             if not (err <= BMA_LOGP_ATOL and torch.isfinite(logp).all()):
-                raise AssertionError(f"bma {mode} T={T}: max|logp - plain| = {err} > {BMA_LOGP_ATOL}")
+                raise AssertionError(f"{label} {mode} T={T}: max|logp - plain| = {err} > {BMA_LOGP_ATOL}")
             # a token may differ only where the plain version's top two
             # selection values lie within the logp tolerance
             sel = rlogp
@@ -207,7 +236,7 @@ def phase_bma(torch, ops, ref):
             for s in np.nonzero((tok != rtok).cpu().numpy())[0]:
                 a, b = sel[s, int(tok[s])].item(), sel[s, int(rtok[s])].item()
                 if not abs(a - b) <= tol:
-                    raise AssertionError(f"bma {mode} T={T} slot {s}: token {int(tok[s])} vs "
+                    raise AssertionError(f"{label} {mode} T={T} slot {s}: token {int(tok[s])} vs "
                                          f"plain {int(rtok[s])}, selection gap {abs(a - b)} > {tol}")
                 ties += 1
             ms = time_ms(torch, lambda: bs_mod.launch(logits, gum, mode=mode, temperature=T,
@@ -217,11 +246,70 @@ def phase_bma(torch, ops, ref):
             nbytes = 4 * (K * S * V + S * V + (S * V if T > 0 else 0) + S)
             flops = 6 * K * S * V
             b_ms, b_by = bound(nbytes, flops, F32_FLOPS_PER_S)
-            log(f"[bma] K={K} S={S} V={V} mode={mode} T={T} top_k={top_k}: "
+            log(f"[{label}] K={K} S={S} V={V} mode={mode} T={T} top_k={top_k}: "
                 f"max_abs_err={err:.3e} (atol {BMA_LOGP_ATOL}) token mismatches within tol={ties} "
                 f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
-            rows.append(dict(mode=mode, T=T, top_k=top_k, err=err, ms=ms, plain_ms=plain,
+            rows.append(dict(V=V, mode=mode, T=T, top_k=top_k, err=err, ms=ms, plain_ms=plain,
                              library_ms=None, bound_ms=b_ms, bound_by=b_by, ties=ties))
+    return rows
+
+
+# The RG-LRU scan's checks: (label, (B, S, R), dtype, with h0).  The first
+# two are the hybrid slice's prefill shapes (recurrentgemma-2b, R = 2560);
+# (1, 32768, 2560) is a 32k-token prompt.
+RGLRU_CASES = [("path S=64", (1, 64, 2560), "float32", False),
+               ("path S=128", (1, 128, 2560), "float32", False),
+               ("batch", (4, 4096, 2560), "float32", False),
+               ("32k prompt", (1, 32768, 2560), "float32", False),
+               ("ragged, h0", (3, 1000, 1000), "float32", True),
+               ("bf16 inputs, h0", (2, 4096, 2560), "bfloat16", True)]
+
+
+def phase_rglru(torch, ops, ref):
+    """The scan kernel against its plain version on the card, bit for bit
+    (max ULP 0), at every RGLRU_CASES shape; kernel time (median of 20)
+    and the plain version's (median of 20, of 3 at S >= 4096) beside the
+    byte bound.  A CUDA call whose inputs require grad must raise."""
+    import repro_torch.kernels.rglru as rg
+
+    g = torch.Generator(device="cuda").manual_seed(16)
+    rows = []
+    for label, (B, S, R), dtype, with_h0 in RGLRU_CASES:
+        dt = getattr(torch, dtype)
+        a = (0.9 + 0.099 * torch.rand((B, S, R), generator=g, device="cuda")).to(dt)
+        x = torch.randn((B, S, R), generator=g, device="cuda").to(dt)
+        h0 = torch.randn((B, R), generator=g, device="cuda") if with_h0 else None
+        got = ops.rglru_scan(a, x, h0)
+        want = ref.rglru_scan(a, x, h0)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        ulp = ulp_gap(torch, got, want)
+        same = torch.equal(got, want)
+        if not (same and ulp == 0 and torch.isfinite(got).all()):
+            raise AssertionError(f"rglru {label} {(B, S, R)}: not bitwise equal to the plain "
+                                 f"version (max abs err {err}, {ulp} ULP)")
+        out = torch.empty_like(got)
+        ms = time_ms(torch, lambda: rg.launch(a, x, h0, out))
+        long = S >= 4096
+        plain = time_ms(torch, lambda: ref.rglru_scan(a, x, h0), reps=3 if long else 20,
+                        warmup=1 if long else 3)
+        nbytes = (2 * a.element_size() + 4) * B * S * R + (4 * B * R if with_h0 else 0)
+        b_ms, b_by = bound(nbytes, 2 * B * S * R, F32_FLOPS_PER_S)
+        log(f"[rglru] {label} (B, S, R)={(B, S, R)} {dtype}{' + h0' if with_h0 else ''}: bitwise "
+            f"equal {same}, max_abs_err={err:.3e}, max ULP {ulp:.0f}; kernel {ms:.4f} ms, plain "
+            f"{plain:.4f} ms{' (median of 3)' if long else ''}, bound {b_ms:.5f} ms ({b_by}, "
+            f"{nbytes / 1e6:.2f} MB); library: none")
+        rows.append(dict(label=label, shape=(B, S, R), dtype=dtype, err=err, ulp=ulp, ms=ms,
+                         plain_ms=plain, library_ms=None, bound_ms=b_ms, bound_by=b_by))
+        del a, x, h0, got, want, out
+    a = torch.rand((1, 8, 16), device="cuda", requires_grad=True)
+    try:
+        ops.rglru_scan(a, torch.rand((1, 8, 16), device="cuda"))
+    except NotImplementedError:
+        log("[rglru] a CUDA call whose inputs require grad raises NotImplementedError")
+    else:
+        raise AssertionError("rglru_scan on CUDA with requires_grad did not raise")
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -231,14 +319,19 @@ def phase_bma(torch, ops, ref):
 
 
 def stacked_members(torch, cfg, model, K, device, seed0=0):
+    """K members, member k drawn from a generator seeded seed0 + k, written
+    into preallocated (K, ...) leaves: the peak is the stack plus one
+    member (recurrentgemma-2b: 46.3 + 11.6 GB)."""
     from repro_torch.models import init_params, tree_map
 
     members = None
     for k in range(K):
         gen = torch.Generator(device=device).manual_seed(seed0 + k)
         p = init_params(model.param_specs(cfg), gen, device)
-        p = tree_map(lambda a: a[None], p)
-        members = p if members is None else tree_map(lambda a, b: torch.cat([a, b]), members, p)
+        if members is None:
+            members = tree_map(lambda a: torch.empty((K,) + tuple(a.shape), dtype=a.dtype,
+                                                     device=device), p)
+        tree_map(lambda dst, src: dst[k].copy_(src), members, p)
         del p
     return members
 
@@ -255,56 +348,75 @@ def check_report(rep, trace, V, label):
             raise AssertionError(f"{label}: request {r.rid} has non-finite log-probs")
 
 
-def phase_slice(torch, card):
+def serve_slice(torch, card, arch, *, paged, kernels, tag, seed0=0):
+    """A model's K-member ensemble at full width, K members from seeded
+    generators, served through ``ServeEngine.run`` with the flash kernel
+    over a 16-request trace (prompts of 64 and 128 tokens, 32 new tokens
+    each): a warm-up, then a greedy and a T=0.7/top-k 50 run, each with
+    every launch count set to 0 just before it and read just after.  Fails
+    if a kernel of ``kernels`` was launched no time in either run."""
     from repro_torch import configs
     from repro_torch.kernels import launches, reset_launches
     from repro_torch.models import get_model
     from repro_torch.serve.engine import ServeEngine, synthetic_trace
     from repro_torch.serve.sampling import SamplingParams
 
-    cfg = configs.get_config("qwen3-0.6b").replace(use_flash_kernel=True)
+    cfg = configs.get_config(arch).replace(use_flash_kernel=True)
     model = get_model(cfg)
-    K = configs.EC_CHAINS["qwen3-0.6b"]
+    K = configs.EC_CHAINS[arch]
+    log(f"[{tag}] device memory before the phase: {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     t0 = time.perf_counter()
-    members = stacked_members(torch, cfg, model, K, "cuda")
+    members = stacked_members(torch, cfg, model, K, "cuda", seed0=seed0)
     torch.cuda.synchronize()
-    log(f"[slice] qwen3-0.6b full width, K={K} members, init {time.perf_counter() - t0:.2f} s, "
+    log(f"[{tag}] {arch} full width ({cfg.num_layers} layers, head_dim {cfg.head_dim}), K={K} "
+        f"members, init {time.perf_counter() - t0:.2f} s, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     trace = synthetic_trace(16, vocab_size=cfg.vocab_size, prompt_lens=(64, 128), max_new=32, seed=0)
-    max_seq = 128 + 32
-    kw = dict(num_slots=8, max_seq=max_seq, record_logprobs=True, device="cuda")
+    kw = dict(num_slots=8, max_seq=128 + 32, record_logprobs=True, device="cuda")
 
     def serve(paged, sampling, label):
         eng = ServeEngine(cfg, model, members, paged=paged, sampling=sampling, **kw)
         torch.cuda.synchronize()
         rep = eng.run(trace)
-        check_report(rep, trace, cfg.vocab_size, label)
+        torch.cuda.synchronize()
+        check_report(rep, trace, cfg.vocab_size, f"{tag} {label}")
         pct = rep.latency_percentiles()
-        log(f"[slice] {label}: {rep.total_tokens} tokens, {rep.decode_steps} decode ticks, "
+        log(f"[{tag}] {label}: {rep.total_tokens} tokens, {rep.decode_steps} decode ticks, "
             f"{rep.tokens_per_s:.1f} tok/s, latency p50 {pct['latency_p50_s']:.3f} s "
             f"p99 {pct['latency_p99_s']:.3f} s, first token p50 {pct['first_token_p50_s']:.3f} s "
             f"p99 {pct['first_token_p99_s']:.3f} s, wall {rep.wall_s:.2f} s [{card}]")
-        return rep
+        return rep, pct
 
+    mode = "paged" if paged else "dense"
     # warm-up on a short trace: cuBLAS handles, allocator pools
-    ServeEngine(cfg, model, members, paged=True, **kw).run(trace[:2])
+    ServeEngine(cfg, model, members, paged=paged, **kw).run(trace[:2])
     torch.cuda.synchronize()
-
+    torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    rep = serve(True, SamplingParams(), "paged greedy")
-    torch.cuda.synchronize()
-    counts = {n: launches[n] for n in SERVING_KERNELS}
-    log(f"[slice] launches on the paged greedy run: {counts}")
-    if min(counts.values()) <= 0:
+    greedy, pct = serve(paged, SamplingParams(), f"{mode} greedy")
+    counts = dict(launches)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[{tag}] launches on the {mode} greedy run: {counts}; peak device memory "
+        f"{peak / 2**30:.2f} GiB [{card}]")
+    if min(counts[n] for n in kernels) <= 0:
         raise AssertionError(f"a kernel was not launched on the main path: {counts}")
-
     reset_launches()
-    serve(True, SamplingParams(temperature=0.7, top_k=50), "paged T=0.7 top_k=50")
-    log(f"[slice] launches on the sampled run: {dict(launches)}")
-    if min(launches[n] for n in SERVING_KERNELS) <= 0:
+    sampled, _ = serve(paged, SamplingParams(temperature=0.7, top_k=50), f"{mode} T=0.7 top_k=50")
+    log(f"[{tag}] launches on the sampled run: {dict(launches)}")
+    if min(launches[n] for n in kernels) <= 0:
         raise AssertionError(f"a kernel was not launched on the sampled run: {dict(launches)}")
+    return dict(cfg=cfg, model=model, K=K, members=members, kw=kw, trace=trace, serve=serve,
+                greedy=greedy, sampled=sampled, counts=counts, peak=peak, pct=pct)
 
-    dense = serve(False, SamplingParams(), "dense greedy")
+
+def phase_slice(torch, card):
+    """qwen3-0.6b at full width, K = 4, on the paged engine; the dense
+    engine's first token against the paged one's, and a profiled run."""
+    from repro_torch.serve.sampling import SamplingParams
+
+    sl = serve_slice(torch, card, "qwen3-0.6b", paged=True, kernels=SERVING_KERNELS, tag="slice")
+    rep, counts = sl["greedy"], {n: sl["counts"][n] for n in SERVING_KERNELS}
+    dense, _ = sl["serve"](False, SamplingParams(), "dense greedy")
     first = max(float(np.abs(a.logprobs[0] - b.logprobs[0]).max())
                 for a, b in zip(rep.results, dense.results))
     second = max(float(np.abs(a.logprobs[1] - b.logprobs[1]).max())
@@ -312,19 +424,62 @@ def phase_slice(torch, card):
     same = sum(int((a.tokens == b.tokens).all()) for a, b in zip(rep.results, dense.results))
     log(f"[slice] paged vs dense: first-token mixture logp max diff {first:.3e} "
         f"(atol {SLICE_FIRST_LOGP_ATOL}); first decode tick max diff {second:.3e} (bf16, not "
-        f"gated); {same}/{len(trace)} requests with identical tokens")
+        f"gated); {same}/{len(sl['trace'])} requests with identical tokens")
     if not first <= SLICE_FIRST_LOGP_ATOL:
         raise AssertionError(f"paged vs dense first-token logp differ by {first}")
     per_tick = {n: c / max(rep.decode_steps, 1) for n, c in counts.items()}
-    profile_serving(torch, cfg, model, members, kw, card)
-    del members
+    profile_serving(torch, sl["cfg"], sl["model"], sl["members"], sl["kw"], card)
+    del sl
+    gc.collect()
     torch.cuda.empty_cache()
     return counts, per_tick
 
 
+HYBRID_KERNELS = ("rglru_scan", "flash_attention", "bma_select")
+
+
+def phase_slice_hybrid(torch, card):
+    """recurrentgemma-2b at full width, K = 4, on the dense engine: exact
+    launch counts on the greedy run, paged refused for RG-LRU layers, a
+    profiled short run, and the SMOKE engine on the card against the CPU."""
+    from repro_torch.serve.engine import ServeEngine
+
+    arch = "recurrentgemma-2b"
+    sl = serve_slice(torch, card, arch, paged=False, kernels=HYBRID_KERNELS, tag="slice-hybrid",
+                     seed0=400)
+    cfg, rep = sl["cfg"], sl["greedy"]
+    n_rglru = sum(k.kind == "rglru" for k in cfg.layer_kinds)
+    n_attn = cfg.num_layers - n_rglru
+    counts = {n: sl["counts"][n] for n in HYBRID_KERNELS}
+    n_req = len(sl["trace"]) * sl["K"]
+    want = {"rglru_scan": n_req * n_rglru, "flash_attention": n_req * n_attn,
+            "bma_select": rep.decode_steps}
+    log(f"[slice-hybrid] {n_rglru} rglru + {n_attn} attn layers (window "
+        f"{cfg.pattern[-1].window}); greedy launches {counts}, expected {want}, paged_attention "
+        f"{sl['counts']['paged_attention']}")
+    if counts != want or sl["counts"]["paged_attention"] != 0:
+        raise AssertionError(f"hybrid greedy run launched {sl['counts']}, expected {want}")
+    try:
+        ServeEngine(cfg, sl["model"], sl["members"], paged=True, **sl["kw"])
+    except ValueError as e:
+        log(f"[slice-hybrid] paged=True refused: ValueError: {e}")
+    else:
+        raise AssertionError("the paged engine accepted a model with RG-LRU layers")
+    prof = profile_serving(torch, cfg, sl["model"], sl["members"], sl["kw"], card, paged=False,
+                           label="slice-hybrid-profile")
+    hybrid = dict(tokens_per_s=rep.tokens_per_s, sampled_tokens_per_s=sl["sampled"].tokens_per_s,
+                  decode_steps=rep.decode_steps, wall=rep.wall_s, peak=sl["peak"], profile=prof,
+                  **sl["pct"])
+    del sl
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_smoke_engine(torch, arch, paged=False, kernels=HYBRID_KERNELS, label="slice-hybrid")
+    return counts, hybrid
+
+
 KERNEL_CLASSES = (  # (label, substrings of a device kernel's name), first match wins
     ("hand kernels", ("flash_fwd", "paged_fwd", "member_stats", "mixture", "normalize",
-                      "topk_threshold", "select_partial", "select_final")),
+                      "topk_threshold", "select_partial", "select_final", "rglru_scan")),
     ("GEMM", ("gemm", "nvjet", "cutlass", "sm90_xmma", "cublas")),
     ("copies and casts", ("copy",)),
 )
@@ -337,8 +492,8 @@ def kernel_class(name: str) -> str:
     return "other elementwise and reductions"
 
 
-def profile_serving(torch, cfg, model, members, kw, card):
-    """Where a serving run's time goes: the device kernels of a short paged
+def profile_serving(torch, cfg, model, members, kw, card, paged=True, label="profile"):
+    """Where a serving run's time goes: the device kernels of a short
     greedy run (torch.profiler, CUDA activity only) against the wall clock
     of the same run without the profiler."""
     from torch.autograd import DeviceType
@@ -349,7 +504,7 @@ def profile_serving(torch, cfg, model, members, kw, card):
     trace = synthetic_trace(8, vocab_size=cfg.vocab_size, prompt_lens=(64, 128), max_new=4, seed=1)
 
     def run():
-        eng = ServeEngine(cfg, model, members, paged=True, **dict(kw, record_logprobs=False))
+        eng = ServeEngine(cfg, model, members, paged=paged, **dict(kw, record_logprobs=False))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         rep = eng.run(trace)
@@ -361,27 +516,30 @@ def profile_serving(torch, cfg, model, members, kw, card):
         run()
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     device_us = sum(e.self_device_time_total for e in kernels)
-    (OUT / "profile.txt").write_text(
+    (OUT / f"{label.replace('-', '_')}.txt").write_text(
         prof.key_averages().table(sort_by="self_device_time_total", row_limit=60))
     if device_us <= 0:
-        log("[profile] torch.profiler recorded no device time: busy share not measured")
-        return
+        log(f"[{label}] torch.profiler recorded no device time: busy share not measured")
+        return None
     n = sum(e.count for e in kernels)
-    log(f"[profile] paged greedy, {len(trace)} requests x 4 tokens ({len(trace)} admits, "
-        f"{rep.decode_steps} ticks): wall {wall:.3f} s without the profiler, device kernels "
-        f"{device_us / 1e6:.3f} s = {100 * device_us / 1e6 / wall:.1f}% busy, {n} kernels [{card}]")
+    log(f"[{label}] {'paged' if paged else 'dense'} greedy, {len(trace)} requests x 4 tokens "
+        f"({len(trace)} admits, {rep.decode_steps} ticks): wall {wall:.3f} s without the "
+        f"profiler, device kernels {device_us / 1e6:.3f} s = {100 * device_us / 1e6 / wall:.1f}% "
+        f"busy, {n} kernels [{card}]")
     classes: dict = {}
     for e in kernels:
         c = kernel_class(e.key)
         classes[c] = classes.get(c, 0.0) + e.self_device_time_total
     for c, us in sorted(classes.items(), key=lambda kv: -kv[1]):
-        log(f"[profile]   {100 * us / device_us:5.1f}%  {us / 1e3:9.3f} ms  {c}")
+        log(f"[{label}]   {100 * us / device_us:5.1f}%  {us / 1e3:9.3f} ms  {c}")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
-        log(f"[profile]   {100 * e.self_device_time_total / device_us:5.1f}%  "
+        log(f"[{label}]   {100 * e.self_device_time_total / device_us:5.1f}%  "
             f"{e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<6d} {e.key[:80]}")
+    return dict(wall=wall, device_us=device_us, kernels=n, classes=classes)
 
 
-def phase_smoke_engine(torch):
+def phase_smoke_engine(torch, arch="qwen3-0.6b", paged=True, kernels=SERVING_KERNELS,
+                       label="smoke-engine"):
     """The whole engine on the card against the CPU, at the SMOKE size in
     f32: the same params, trace and greedy sampling give the same tokens."""
     from repro_torch import configs
@@ -389,7 +547,7 @@ def phase_smoke_engine(torch):
     from repro_torch.models import get_model, tree_map
     from repro_torch.serve.engine import ServeEngine, synthetic_trace
 
-    cfg = configs.get_config("qwen3-0.6b", smoke=True).replace(use_flash_kernel=True)
+    cfg = configs.get_config(arch, smoke=True).replace(use_flash_kernel=True)
     model = get_model(cfg)
     members = stacked_members(torch, cfg, model, 4, "cpu", seed0=100)
     trace = synthetic_trace(6, vocab_size=cfg.vocab_size, prompt_lens=(16, 8), max_new=6, seed=3)
@@ -397,17 +555,17 @@ def phase_smoke_engine(torch):
     for dev in ("cpu", "cuda"):
         mem = tree_map(lambda a: a.to(dev), members)
         reset_launches()
-        reps[dev] = ServeEngine(cfg, model, mem, num_slots=4, max_seq=24, paged=True,
+        reps[dev] = ServeEngine(cfg, model, mem, num_slots=4, max_seq=24, paged=paged,
                                 record_logprobs=True, device=dev).run(trace)
-        if dev == "cuda" and min(launches[n] for n in SERVING_KERNELS) <= 0:
-            raise AssertionError(f"smoke engine on the card missed a kernel: {dict(launches)}")
+        if dev == "cuda" and min(launches[n] for n in kernels) <= 0:
+            raise AssertionError(f"{label} on the card missed a kernel: {dict(launches)}")
     diff = max(float(np.abs(a.logprobs - b.logprobs).max())
                for a, b in zip(reps["cpu"].results, reps["cuda"].results))
     same = all((a.tokens == b.tokens).all() for a, b in zip(reps["cpu"].results, reps["cuda"].results))
-    log(f"[smoke-engine] SMOKE f32, paged, flash on: card vs CPU tokens equal={same}, "
-        f"logp max diff {diff:.3e} (atol {SMOKE_LOGP_ATOL})")
+    log(f"[{label}] {arch} SMOKE f32, {'paged' if paged else 'dense'}, flash on: card vs CPU "
+        f"tokens equal={same}, logp max diff {diff:.3e} (atol {SMOKE_LOGP_ATOL})")
     if not (same and diff <= SMOKE_LOGP_ATOL):
-        raise AssertionError("engine on the card disagrees with the CPU at the SMOKE size")
+        raise AssertionError(f"{label}: engine on the card disagrees with the CPU at the SMOKE size")
 
 
 # ---------------------------------------------------------------------------
@@ -996,8 +1154,12 @@ def main() -> int:
 
     qwen = configs.get_config("qwen3-0.6b")
     flash = phase_flash(torch, ops, ref, F)
+    flash256 = phase_flash(torch, ops, ref, F, Hq=10, Hkv=1, d=256,
+                           cases=((64, 2048), (128, 2048), (128, 16)), label="flash256", seed=17)
     paged = phase_paged(torch, ops, ref)
     bma = phase_bma(torch, ops, ref)
+    bma256k = phase_bma(torch, ops, ref, V=256000, label="bma256k", seed=18)
+    rglru = phase_rglru(torch, ops, ref)
     fused = phase_fused_ec(torch, ops, ref, qwen)
     precond = phase_fused_precond(torch, ops, ref, qwen)
     phase_philox(torch, ops, ref, qwen)
@@ -1013,6 +1175,8 @@ def main() -> int:
     counts["fused_ec_update"] = train_counts["fused_ec_update"]
     adaptive_counts, train_adaptive = phase_train(torch, card, adaptive=True)
     counts["fused_precond_ec_update"] = adaptive_counts["fused_precond_ec_update"]
+    hybrid_counts, hybrid = phase_slice_hybrid(torch, card)
+    counts["rglru_scan"] = hybrid_counts["rglru_scan"]
 
     f128 = next(r for r in flash if r["S"] == 128)
     bg = next(r for r in bma if r["mode"] == "probs" and r["T"] == 0.0)
@@ -1027,6 +1191,8 @@ def main() -> int:
          "src/repro/kernels/fused_ecsghmc.py:54", fused),
         ("fused_precond_ec_update", "src/repro_torch/kernels/csrc/fused_ecsghmc.cu",
          "src/repro/kernels/fused_ecsghmc.py:156", precond),
+        ("rglru_scan", "src/repro_torch/kernels/csrc/rglru.cu", "src/repro/kernels/rglru.py:38",
+         next(r for r in rglru if r["shape"] == (1, 128, 2560))),
     ]
     kernels = [
         {"name": n, "route": "cuda", "source": src, "replaces": rep, "launches": counts[n],
@@ -1035,9 +1201,11 @@ def main() -> int:
         for n, src, rep, r in entries
     ]
     (OUT / "result.json").write_text(json.dumps({"card": card, "kernels": kernels,
-                                                  "flash": flash, "paged": paged, "bma": bma,
+                                                  "flash": flash, "flash256": flash256,
+                                                  "paged": paged, "bma": bma, "bma256k": bma256k,
+                                                  "rglru": rglru,
                                                   "fused_ec": fused, "fused_precond": precond,
-                                                  "train": train,
+                                                  "hybrid": hybrid, "train": train,
                                                   "train_adaptive": train_adaptive},
                                                  indent=1, default=str))
     print(json.dumps({"kernels": kernels}))

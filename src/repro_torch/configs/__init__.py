@@ -18,10 +18,10 @@ ARCH_IDS = (
     "qwen2-vl-7b",
 )
 
-PORTED = ("qwen3-0.6b",)
+PORTED = ("qwen3-0.6b", "recurrentgemma-2b")
 
 # EC-SGHMC chain count per arch (the serving ensemble's K)
-EC_CHAINS = {"qwen3-0.6b": 4}
+EC_CHAINS = {"qwen3-0.6b": 4, "recurrentgemma-2b": 4}
 
 
 def get_config(arch: str, smoke: bool = False):

@@ -15,7 +15,7 @@ import time
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("flash_attention", "paged_attention", "bma_select", "fused_ecsghmc")
+SOURCES = ("flash_attention", "paged_attention", "bma_select", "fused_ecsghmc", "rglru")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -20,6 +20,12 @@
 // reduced with warp shuffles.  Causal and sliding-window limits skip whole k
 // tiles, as the Pallas kernel's pl.when does.  Masked scores contribute
 // exactly 0.  Tensor cores, TMA and pipelining are left for later work.
+//
+// Head dims: D = 64, 128 and 256 are instantiated (smaller heads are
+// zero-padded by the wrapper).  At D = 256 (recurrentgemma-2b) the four
+// shared tiles take 4 * (64*257 + 64*257 + 64*256 + 64*65) = 213,760 bytes,
+// under the 232,448-byte opt-in, so one block runs per SM, and each thread
+// holds 64 f32 accumulators.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -177,5 +183,8 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   if (D == 64)
     return is_bf16 ? launch<__nv_bfloat16, 64>(q, k, v, o, B, Hq, Hkv, S, causal, window, softcap, scale, st)
                    : launch<float, 64>(q, k, v, o, B, Hq, Hkv, S, causal, window, softcap, scale, st);
+  if (D == 256)
+    return is_bf16 ? launch<__nv_bfloat16, 256>(q, k, v, o, B, Hq, Hkv, S, causal, window, softcap, scale, st)
+                   : launch<float, 256>(q, k, v, o, B, Hq, Hkv, S, causal, window, softcap, scale, st);
   return (int)cudaErrorInvalidValue;
 }

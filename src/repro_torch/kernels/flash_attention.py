@@ -1,7 +1,8 @@
 """Binding of the hand-written flash-attention kernel
 (``csrc/flash_attention.cu``), which replaces the Pallas kernel
-``repro/kernels/flash_attention.py::_flash_kernel``.  Call it through
-``ops.flash_attention``, which checks the arguments."""
+``repro/kernels/flash_attention.py::_flash_kernel``, at head dims 64, 128
+and 256.  Call it through ``ops.flash_attention``, which checks the
+arguments and zero-pads any head dim up to 256 to the next of those."""
 from __future__ import annotations
 
 import ctypes
@@ -22,7 +23,7 @@ def _fn():
 
 def launch(q, k, v, out, *, causal, window, softcap, scale) -> None:
     """q, out (B, Hq, S, d); k, v (B, Hkv, S, d); contiguous CUDA tensors
-    of one dtype (f32 or bf16), d in {64, 128}."""
+    of one dtype (f32 or bf16), d in {64, 128, 256}."""
     B, Hq, S, d = q.shape
     rc = _fn()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

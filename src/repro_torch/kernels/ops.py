@@ -18,7 +18,7 @@ import torch.nn.functional as F
 from . import ref
 
 launches = {"flash_attention": 0, "paged_attention": 0, "bma_select": 0, "fused_ec_update": 0,
-            "fused_precond_ec_update": 0}
+            "fused_precond_ec_update": 0, "rglru_scan": 0}
 
 BMA_CHUNK = 4096  # vocabulary elements per bma_select block
 _ATTN_DTYPES = (torch.float32, torch.bfloat16)
@@ -47,11 +47,17 @@ def _require_contiguous(**tensors) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
-def _padded_head_dim(d: int) -> int:
-    """The kernels take d in {64, 128}; smaller heads are zero-padded."""
-    if d < 1 or d > 128:
-        raise ValueError(f"head_dim {d} not in [1, 128]")
-    return 64 if d <= 64 else 128
+FLASH_HEAD_DIMS = (64, 128, 256)  # instantiated in csrc/flash_attention.cu
+PAGED_HEAD_DIMS = (64, 128)  # instantiated in csrc/paged_attention.cu
+
+
+def _padded_head_dim(d: int, dims) -> int:
+    """The smallest of a kernel's head dims ``dims`` that holds d; a smaller
+    head is zero-padded to it."""
+    for dp in dims:
+        if 1 <= d <= dp:
+            return dp
+    raise ValueError(f"head_dim {d} not in [1, {dims[-1]}]")
 
 
 def _pad_last(x, dp: int):
@@ -64,7 +70,8 @@ def _pad_last(x, dp: int):
 
 def flash_attention(q, k, v, *, causal=True, window=None, softcap=None, scale=None):
     """(B, Hq, S, d) x (B, Hkv, S, d)^2 -> (B, Hq, S, d) in q's dtype.
-    Pads d to 64 or 128; the softmax scale keeps the ORIGINAL head dim."""
+    Pads d to 64, 128 or 256; the softmax scale keeps the ORIGINAL head
+    dim."""
     on_card = _on_card(q, k, v)
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
         raise ValueError("q, k, v must be 4-D (B, H, S, d)")
@@ -77,7 +84,7 @@ def flash_attention(q, k, v, *, causal=True, window=None, softcap=None, scale=No
     Hkv = k.shape[1]
     if Hkv < 1 or Hq % Hkv:
         raise ValueError(f"Hq={Hq} is not a multiple of Hkv={Hkv}")
-    dp = _padded_head_dim(d)
+    dp = _padded_head_dim(d, FLASH_HEAD_DIMS)
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     q, k, v = _pad_last(q, dp), _pad_last(k, dp), _pad_last(v, dp)
     if not on_card:
@@ -117,7 +124,7 @@ def paged_attention(q, k_pages, v_pages, block_tables, context_lens,
         raise ValueError("block_tables must be (B, M) and context_lens (B,)")
     if not 1 <= G <= 8 or not 1 <= bs <= 128:
         raise ValueError(f"kernel takes 1 <= G <= 8 and 1 <= block_size <= 128, got G={G}, bs={bs}")
-    dp = _padded_head_dim(d)
+    dp = _padded_head_dim(d, PAGED_HEAD_DIMS)
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     q, k_pages, v_pages = _pad_last(q, dp), _pad_last(k_pages, dp), _pad_last(v_pages, dp)
     if not on_card:
@@ -131,6 +138,45 @@ def paged_attention(q, k_pages, v_pages, block_tables, context_lens,
                    scale=scale, window=window, softcap=softcap)
         launches["paged_attention"] += 1
     return out[..., :d] if dp != d else out
+
+
+# --- RG-LRU scan --------------------------------------------------------------
+
+
+def rglru_scan(a, x, h0=None):
+    """The linear recurrence h_t = a_t * h_{t-1} + x_t over axis 1.  a, x:
+    (B, S, R) of one dtype, f32 or bf16; h0: (B, R) or None, the carry
+    before step 0.  Returns h (B, S, R) f32.  The CUDA kernel has no
+    backward (that is the training slice's), so on the card a call whose
+    inputs require grad raises."""
+    on_card = _on_card(*(t for t in (a, x, h0) if t is not None))
+    if a.ndim != 3 or x.shape != a.shape:
+        raise ValueError(f"a and x must be (B, S, R) of one shape, got {tuple(a.shape)}, "
+                         f"{tuple(x.shape)}")
+    if x.dtype != a.dtype or a.dtype not in _ATTN_DTYPES:
+        raise ValueError(f"a and x must share one dtype of f32 or bf16, got {a.dtype}, {x.dtype}")
+    B, S, R = a.shape
+    if h0 is not None:
+        if h0.shape != (B, R) or not h0.is_floating_point():
+            raise ValueError(f"h0 must be a float tensor of shape {(B, R)}, got "
+                             f"{h0.dtype} {tuple(h0.shape)}")
+        h0 = h0.float().contiguous()
+    _require_contiguous(a=a, x=x)
+    if not on_card:
+        return ref.rglru_scan(a, x, h0)
+    if a.requires_grad or x.requires_grad or (h0 is not None and h0.requires_grad):
+        raise NotImplementedError("the rglru_scan kernel has no backward; its gradient "
+                                  "waits for the hybrid family's training slice")
+    if B > 65535:
+        raise ValueError(f"kernel takes B <= 65535, got {B}")
+    out = torch.empty((B, S, R), dtype=torch.float32, device=a.device)
+    if out.numel() == 0:
+        return out
+    from . import rglru as _rg
+
+    _rg.launch(a, x, h0, out)
+    launches["rglru_scan"] += 1
+    return out
 
 
 # --- fused BMA mixture + selection -------------------------------------------

@@ -228,3 +228,22 @@ def _store(theta, p, theta_new, p_new, bits1, bits2, stochastic_round):
         return (stochastic_round_bf16(theta_new, sr),
                 stochastic_round_bf16(p_new, sr ^ (SR_SALT - (1 << 32))))  # as int32
     return theta_new.to(theta.dtype), p_new.to(p.dtype)
+
+
+# --- RG-LRU scan -------------------------------------------------------------
+
+
+def rglru_scan(a, x, h0=None):
+    """h_t = a_t * h_{t-1} + x_t over axis 1, sequentially in f32, each
+    step a multiply and then an add (no fused multiply-add), so the CUDA
+    kernel equals it bit for bit.  a, x: (B, S, R), any float type; h0:
+    (B, R) or None, the carry before step 0 (the reference's
+    ``x[:, 0] += a[:, 0] * h0``).  Returns h (B, S, R) f32."""
+    a, x = a.float(), x.float()
+    B, S, R = a.shape
+    h = h0.float() if h0 is not None else torch.zeros((B, R), dtype=torch.float32, device=a.device)
+    out = torch.empty((B, S, R), dtype=torch.float32, device=a.device)
+    for t in range(S):
+        h = a[:, t] * h + x[:, t]
+        out[:, t] = h
+    return out

@@ -19,7 +19,7 @@ import torch
 class ParamSpec:
     shape: tuple
     axes: tuple  # logical axis name (str) or None per dim; len == len(shape)
-    init: str = "normal"  # normal | zeros | ones
+    init: str = "normal"  # normal | zeros | ones | lru_lambda
     scale: float | str = "fan_in"  # stddev, or "fan_in" => 1/sqrt(fan_in dim)
     dtype: Any = torch.float32
 
@@ -61,8 +61,15 @@ def _materialize(spec: ParamSpec, generator, device) -> torch.Tensor:
         return torch.zeros(spec.shape, dtype=spec.dtype, device=device)
     if spec.init == "ones":
         return torch.ones(spec.shape, dtype=spec.dtype, device=device)
+    if spec.init == "lru_lambda":
+        # RG-LRU Λ init: a = exp(-8·softplus(Λ)) uniform in [0.9, 0.999], so
+        # Λ = softplus⁻¹(-log(u)/8) for u ~ U(0.9, 0.999)
+        u = torch.rand(spec.shape, generator=generator, dtype=torch.float32, device=device)
+        u = torch.clamp_min(u * (0.999 - 0.9) + 0.9, 0.9)
+        sp = -torch.log(u) / 8.0
+        return torch.log(torch.expm1(torch.clamp_min(sp, 1e-8))).to(spec.dtype)
     if spec.init != "normal":
-        raise NotImplementedError(f"init {spec.init!r} (recurrent families are not ported)")
+        raise NotImplementedError(f"init {spec.init!r}")
     if spec.scale == "fan_in":
         fan_in = spec.shape[-2] if len(spec.shape) >= 2 else max(spec.shape[-1], 1)
         std = 1.0 / math.sqrt(fan_in)

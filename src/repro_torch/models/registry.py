@@ -1,5 +1,7 @@
-"""Model registry: family -> ModelDef (the uniform model interface).  Only
-the dense family is ported."""
+"""Model registry: family -> ModelDef (the uniform model interface).  The
+dense and hybrid (recurrentgemma) families are ported; the paged surface's
+``check_support`` refuses the hybrid family's RG-LRU layers, as the
+reference's does."""
 from __future__ import annotations
 
 from typing import Callable, NamedTuple
@@ -42,6 +44,7 @@ _LM = ModelDef(
 
 
 def get_model(cfg: ModelConfig) -> ModelDef:
-    if cfg.family != "dense":
-        raise NotImplementedError(f"model family {cfg.family!r} is not ported; only 'dense'")
+    if cfg.family not in ("dense", "hybrid"):
+        raise NotImplementedError(
+            f"model family {cfg.family!r} is not ported; only 'dense' and 'hybrid'")
     return _LM

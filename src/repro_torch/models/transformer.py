@@ -1,11 +1,12 @@
-"""Decoder-only LM, attention-only families (the dense archs).
+"""Decoder-only LM: the dense family (attention blocks) and the hybrid
+family (RG-LRU blocks between local-attention blocks, recurrentgemma).
 
 Layers follow a repeating block *pattern*: params for pattern position i
 are stacked with a leading (num_periods,) axis, exactly as in the
 reference package, so weights cross one to one; the forward passes loop
 over periods where the reference scans.  Remainder layers (depth %
-period) are applied after the loop.  MoE and recurrent block kinds are not
-ported and raise.
+period) are applied after the loop.  MoE blocks and the xLSTM kinds
+(mlstm, slstm) are not ported and raise.
 
 Entry points per model:
   train_nll(cfg, params, batch)            -> (sum_nll, token_count)
@@ -22,14 +23,17 @@ import dataclasses
 import torch
 
 from . import layers as L
+from . import recurrent as R
 from .common import LayerKind, ModelConfig, ParamSpec, tree_map
 
 
 def _check_kind(kind: LayerKind) -> None:
-    if kind.kind != "attn" or kind.moe:
-        raise NotImplementedError(
-            f"block kind {kind.kind!r} (moe={kind.moe}) is not ported; only dense attention"
-        )
+    if (kind.kind == "attn" and not kind.moe) or kind.kind == "rglru":
+        return
+    raise NotImplementedError(
+        f"block kind {kind.kind!r} (moe={kind.moe}) is not ported; only dense attention and "
+        "rglru (the xLSTM and MoE blocks are listed in ROADMAP.md, Queue A)"
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -44,6 +48,9 @@ def stack_specs(specs, n: int):
 
 def _block_specs(cfg: ModelConfig, kind: LayerKind) -> dict:
     _check_kind(kind)
+    if kind.kind == "rglru":
+        return {"ln1": L.norm_spec(cfg), "mix": R.rglru_specs(cfg), "ln2": L.norm_spec(cfg),
+                "mlp": L.mlp_specs(cfg)}
     sp = {"ln1": L.norm_spec(cfg), "attn": L.attn_specs(cfg), "ln2": L.norm_spec(cfg),
           "mlp": L.mlp_specs(cfg)}
     if cfg.sandwich_norm:
@@ -106,25 +113,45 @@ def _ffn_tail(cfg, p, x, h):
     return x + h
 
 
+def _rglru_tail(cfg, p, x, h):
+    x = x + h
+    return x + L.mlp(cfg, p["mlp"], _norm(cfg, x, p["ln2"]))
+
+
+def _rglru_layer(cfg, p, x):
+    """An RG-LRU block on the full sequence: (x out, the mixer's final state)."""
+    h, state = R.rglru_block(cfg, p["mix"], _norm(cfg, x, p["ln1"]))
+    return _rglru_tail(cfg, p, x, h), state
+
+
 def apply_block(cfg: ModelConfig, kind: LayerKind, p, x, positions):
     _check_kind(kind)
+    if kind.kind == "rglru":
+        return _rglru_layer(cfg, p, x)[0]
     h = L.attention(cfg, p["attn"], _norm(cfg, x, p["ln1"]), positions, kind.window)
     return _ffn_tail(cfg, p, x, h)
 
 
 def decode_block(cfg: ModelConfig, kind: LayerKind, p, x, cache, t):
     _check_kind(kind)
+    if kind.kind == "rglru":
+        h, _ = R.rglru_decode(cfg, p["mix"], _norm(cfg, x, p["ln1"]), cache["mix"])
+        return _rglru_tail(cfg, p, x, h)
     h, _ = L.decode_attention(cfg, p["attn"], _norm(cfg, x, p["ln1"]), cache["attn"], t, kind.window)
     return _ffn_tail(cfg, p, x, h)
 
 
 def make_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype, device="cuda"):
-    """Dense decode cache: leaves (n_periods, batch, L, Hkv, dh) per pattern
-    layer, plus ``t``, the next position (0-d)."""
+    """Dense decode cache, plus ``t``, the next position (0-d).  Per
+    pattern layer: attention k/v leaves (n_periods, batch, L, Hkv, dh), or
+    the RG-LRU state, h (n_periods, batch, R) f32 and conv (n_periods,
+    batch, W-1, R); remainder layers drop the n_periods axis."""
     P, n_periods, rem_kinds = _layout(cfg)
 
     def one(kind, lead):
         _check_kind(kind)
+        if kind.kind == "rglru":
+            return {"mix": R.rglru_init_state(cfg, batch, dtype, device, lead)}
         return {"attn": L.init_cache(cfg, batch, max_seq, kind.window, dtype, device, lead)}
 
     cache = {
@@ -181,8 +208,14 @@ def train_nll(cfg: ModelConfig, params, batch):
 
 def _prefill_block(cfg, kind, p, x, cache, positions):
     """apply_block + fill this layer's cache (a view, written in place)
-    from the full-sequence pass."""
+    from the full-sequence pass.  An RG-LRU layer's state comes out of its
+    one scan."""
     _check_kind(kind)
+    if kind.kind == "rglru":
+        x, state = _rglru_layer(cfg, p, x)
+        for key, val in state.items():
+            cache["mix"][key].copy_(val)
+        return x
     xin = _norm(cfg, x, p["ln1"])
     _, k, v = L._qk(cfg, p["attn"], xin, positions)
     ck, cv = cache["attn"]["k"], cache["attn"]["v"]

@@ -2,8 +2,9 @@
 
 ``CachePool`` pre-allocates every decode slot's dense cache for every
 ensemble member: the leaves of ``model.make_cache(cfg, batch=num_slots,
-max_seq)`` with a leading member axis, and a per-slot position ``t`` of
-shape (K, num_slots).  It is allocated ONCE at engine construction;
+max_seq)`` (attention k/v, RG-LRU state) with a leading member axis, and a
+per-slot position ``t`` of shape (K, num_slots).  It is allocated ONCE at
+engine construction;
 admissions and completions recycle slots by index.  (The reference pools
 one batch-1 cache per slot; here the slot axis is the cache's batch axis,
 so a member decodes every slot in one call.)
@@ -37,9 +38,9 @@ def _no_compression(compress_parked: bool) -> None:
 
 
 def _batch_leaves(tree, stacked: bool = False):
-    """(parent dict, key, batch axis) for each k/v leaf of a make_cache tree
-    (batch axis 1 under the stacked "layers", 0 under "rem"); ``t`` is
-    skipped."""
+    """(parent dict, key, batch axis) for each leaf of a make_cache tree:
+    attention k/v and RG-LRU h/conv alike (batch axis 1 under the stacked
+    "layers", 0 under "rem"); ``t`` is skipped."""
     for key, sub in tree.items():
         if isinstance(sub, dict):
             yield from _batch_leaves(sub, stacked or key == "layers")
@@ -48,7 +49,7 @@ def _batch_leaves(tree, stacked: bool = False):
 
 
 class ParkedCache(NamedTuple):
-    """A slot's cache lifted out of the live pool: per k/v leaf, the
+    """A slot's cache lifted out of the live pool: per cache leaf, the
     (K, ...) slice of that slot, in ``_batch_leaves`` order, plus ``t``."""
 
     leaves: list
@@ -58,7 +59,8 @@ class ParkedCache(NamedTuple):
 class CachePool:
     """Pre-allocated dense cache pool with free-list recycling.
 
-    ``caches`` leaves are (K, [n_periods,] num_slots, L, Hkv, dh) and
+    ``caches`` leaves are (K, [n_periods,] num_slots, ...): attention k/v
+    (..., L, Hkv, dh), RG-LRU h (..., R) and conv (..., W-1, R); and
     ``caches["t"]`` is (K, num_slots).  ``member(k)`` is member k's view, a
     ``make_cache``-shaped tree whose ``t`` is (num_slots,); decode steps
     write through it in place."""

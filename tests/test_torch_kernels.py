@@ -43,6 +43,8 @@ FLASH_CASES = {
     "window": dict(B=1, Hq=4, Hkv=2, S=32, d=64, window=8),
     "softcap": dict(B=1, Hq=2, Hkv=1, S=16, d=64, softcap=5.0),
     "d16_padded": dict(B=1, Hq=4, Hkv=2, S=16, d=16),
+    "d256_mqa_window": dict(B=1, Hq=4, Hkv=1, S=32, d=256, window=8),
+    "d200_padded": dict(B=1, Hq=2, Hkv=1, S=16, d=200),
     "noncausal": dict(B=1, Hq=2, Hkv=2, S=16, d=64, causal=False),
 }
 
@@ -220,8 +222,8 @@ FLASH_GUARDS = {
     "kv_shape": lambda q, k, v: (q, k[:, :, :4].contiguous(), v),
     "heads_not_multiple": lambda q, k, v: (q[:, :1].repeat(1, 3, 1, 1), k.repeat(1, 2, 1, 1),
                                            v.repeat(1, 2, 1, 1)),
-    "head_dim_too_large": lambda q, k, v: (torch.zeros(1, 2, 8, 192), torch.zeros(1, 1, 8, 192),
-                                           torch.zeros(1, 1, 8, 192)),
+    "head_dim_too_large": lambda q, k, v: (torch.zeros(1, 2, 8, 320), torch.zeros(1, 1, 8, 320),
+                                           torch.zeros(1, 1, 8, 320)),
 }
 
 
@@ -249,6 +251,7 @@ PAGED_GUARDS = {
     "group_too_large": lambda a: _paged_args(G=9),
     "block_too_large": lambda a: _paged_args(bs=129),
     "head_dim_too_large": lambda a: _paged_args(d=160),
+    "head_dim_256": lambda a: _paged_args(d=256),  # flash takes 256, the paged kernel does not
 }
 
 
@@ -296,6 +299,11 @@ def test_cuda_kernels_match_plain_versions(card):
     k, v = k[:, :2].contiguous(), v[:, :2].contiguous()
     torch.testing.assert_close(ops.flash_attention(q, k, v).float(),
                                ref.attention(q, k, v).float(), atol=2e-2, rtol=0)
+    q, k, v = (torch.tensor(_np(i, 1, 10, 64, 256), device=card).to(torch.bfloat16)
+               for i in (7, 8, 9))
+    k, v = k[:, :1].contiguous(), v[:, :1].contiguous()
+    torch.testing.assert_close(ops.flash_attention(q, k, v, window=16).float(),
+                               ref.attention(q, k, v, window=16).float(), atol=2e-2, rtol=0)
     args = [torch.tensor(a, device=card) for a in _paged_case(3, B=4, Hkv=2, G=2, d=64, bs=16,
                                                                  M=3, permute=True)]
     torch.testing.assert_close(ops.paged_attention(*args), ref.paged_attention(*args),
