@@ -10,11 +10,17 @@ It imports torch, numpy and repro_torch only, and:
 1. prints the card (``nvidia-smi`` name and power limit);
 2. builds the five CUDA sources from ``src/repro_torch/kernels/csrc`` into
    ``build/kernels/`` (one nvcc per source, in parallel);
-3. holds each kernel against its plain PyTorch version on the card at its
-   main path's shapes, and times kernel, plain version and (flash) the
-   PyTorch library call, beside the least time the card could take: flash
-   at qwen3's head_dim 128 and at recurrentgemma's 256 (``[flash256]``),
-   and the RG-LRU scan bit for bit up to a 32k-token prompt (``[rglru]``);
+3. reports each kernel's ptxas registers, shared memory and spills and
+   the HMMA count of flash_attention's SASS (failing on a spill in either
+   attention kernel or on no HMMA), then holds each kernel against its
+   plain PyTorch version on the card at its main path's shapes, and times
+   kernel, plain version and (flash) the PyTorch library call, by CUDA
+   events and (attention) by device time per launch, beside the least time
+   the card could take: flash at qwen3's head_dim 128 (S 64, ragged 100,
+   128, and softcap 50 at 128) and at recurrentgemma's 256
+   (``[flash256]``, window 2048 and 16), paged decode at the path's shape,
+   with ragged lengths, a done slot and a window, and in f32, and the
+   RG-LRU scan bit for bit up to a 32k-token prompt (``[rglru]``);
 4. the sampler: checks the fused EC-SGHMC kernel's in-kernel Philox noise
    against N(0, 1) over the 2.38e9 elements of a qwen3-0.6b K=4 step, runs
    fused EC-SGHMC on a Gaussian target against the exact stationary
@@ -112,94 +118,208 @@ def bound(nbytes: float, flops: float, flops_rate: float) -> tuple[float, str]:
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
+def device_ms(torch, fn, reps: int = 20, warmup: int = 3):
+    """Device time of one ``fn()``: the summed device time of every kernel
+    it launches over ``reps`` calls under torch.profiler, over ``reps``.
+    Unlike ``time_ms`` it leaves out the launch from Python.  None when the
+    profiler records no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(2):  # a profiler window now and then records no kernel; take a second
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA)
+        if us > 0:
+            return us / 1e3 / reps
+    return None
+
+
+def fmt_ms(x) -> str:
+    return "not measured" if x is None else f"{x:.4f} ms"
+
+
+def build_report(build_log: dict, libs: dict) -> tuple[str, dict]:
+    """Per library, each kernel's ptxas report (registers, static shared
+    memory, spill bytes) from nvcc's ``-Xptxas -v`` output, and the count of
+    tensor-core (HMMA) instructions in its SASS (``cuobjdump -sass``)."""
+    import re
+    import shutil
+
+    def demangle(names):
+        filt = shutil.which("c++filt")
+        if not filt or not names:
+            return names
+        out = subprocess.run([filt], input="\n".join(names), capture_output=True, text=True)
+        return out.stdout.splitlines() if out.returncode == 0 else names
+
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    lines, report = [], {}
+    for lib, text in build_log.items():
+        fns, cur = [], None
+        for line in text.splitlines():
+            m = re.search(r"Compiling entry function '([^']+)'", line)
+            if m:
+                cur = dict(fn=m.group(1), regs=None, smem=0, spill=0)
+                fns.append(cur)
+            elif cur is not None:
+                m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+                if m:
+                    cur["spill"] = int(m.group(1)) + int(m.group(2))
+                m = re.search(r"Used (\d+) registers", line)
+                if m:
+                    cur["regs"] = int(m.group(1))
+                    sm = re.search(r"(\d+) bytes smem", line)
+                    cur["smem"] = int(sm.group(1)) if sm else 0
+        for f, name in zip(fns, demangle([f["fn"] for f in fns])):
+            f["fn"] = name
+        hmma = None
+        if lib in libs:
+            sass = subprocess.run([cuobjdump, "-sass", str(libs[lib])], capture_output=True,
+                                  text=True)
+            if sass.returncode == 0:
+                hmma = sum("HMMA" in ln for ln in sass.stdout.splitlines())
+        report[lib] = dict(functions=fns, hmma=hmma)
+        lines.append(f"--- {lib}: {len(fns)} kernels, HMMA instructions in SASS: "
+                     f"{'not read' if hmma is None else hmma}")
+        lines += [f"  regs {f['regs']:>3}  smem {f['smem']:>6} B  spill {f['spill']:>4} B  {f['fn']}"
+                  for f in fns]
+    return "\n".join(lines), report
+
+
 # ---------------------------------------------------------------------------
 # kernel phases
 # ---------------------------------------------------------------------------
 
+FLASH_CASES = ((64, None, None), (100, None, None), (128, None, None),
+               (128, None, 50.0))  # (S, window, softcap): ragged S = 100; gemma2's softcap 50
+FLASH256_CASES = ((64, 2048, None), (128, 2048, None), (128, 16, None))
 
-def phase_flash(torch, ops, ref, F, *, Hq=16, Hkv=8, d=128, cases=((64, None), (128, None)),
+
+def phase_flash(torch, ops, ref, F, *, Hq=16, Hkv=8, d=128, cases=FLASH_CASES,
                 label="flash", seed=11):
     """The flash kernel against its plain version at a model's prefill
-    shapes, one row for each (S, window) of ``cases`` (qwen3-0.6b by
-    default; ``[flash256]`` is recurrentgemma-2b's head_dim 256 with MQA and
-    its window, and a window shorter than S), timed beside SDPA and the
-    bound.  SDPA gets the causal flag where the window cuts nothing, else
-    the same causal band as a boolean mask."""
+    shapes, one row for each (S, window, softcap) of ``cases`` (qwen3-0.6b
+    by default; ``[flash256]`` is recurrentgemma-2b's head_dim 256 with MQA
+    and its window, and a window shorter than S), timed beside SDPA and the
+    bound, by CUDA events and by device time per launch.  SDPA gets the
+    causal flag where the window cuts nothing, else the same causal band as
+    a boolean mask; it has no softcap, so a softcap row has no library
+    time."""
     import repro_torch.kernels.flash_attention as fa
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     rows = []
-    for S, window in cases:
+    for S, window, softcap in cases:
         B = 1
         q = torch.randn((B, Hq, S, d), generator=g, device="cuda").to(torch.bfloat16)
         k = torch.randn((B, Hkv, S, d), generator=g, device="cuda").to(torch.bfloat16)
         v = torch.randn((B, Hkv, S, d), generator=g, device="cuda").to(torch.bfloat16)
         scale = 1.0 / math.sqrt(d)
-        got = ops.flash_attention(q, k, v, causal=True, window=window, scale=scale)
-        want = ref.attention(q, k, v, causal=True, window=window, scale=scale)
+        kw = dict(causal=True, window=window, softcap=softcap, scale=scale)
+        got = ops.flash_attention(q, k, v, **kw)
+        want = ref.attention(q, k, v, **kw)
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
         if not (err <= FLASH_ATOL and torch.isfinite(got).all()):
-            raise AssertionError(f"{label} S={S} window={window}: max|kernel - plain| = {err} "
-                                 f"> {FLASH_ATOL}")
+            raise AssertionError(f"{label} S={S} window={window} softcap={softcap}: "
+                                 f"max|kernel - plain| = {err} > {FLASH_ATOL}")
         out = torch.empty_like(q)
-        ms = time_ms(torch, lambda: fa.launch(q, k, v, out, causal=True, window=window,
-                                              softcap=None, scale=scale))
-        plain = time_ms(torch, lambda: ref.attention(q, k, v, causal=True, window=window,
-                                                     scale=scale))
+        kernel = lambda: fa.launch(q, k, v, out, **kw)  # noqa: E731
+        ms, dev = time_ms(torch, kernel), device_ms(torch, kernel)
+        plain = time_ms(torch, lambda: ref.attention(q, k, v, **kw))
         pos = torch.arange(S, device="cuda")
         lag = pos[:, None] - pos[None, :]
         band = (lag >= 0) & (lag < (window if window is not None else S))
-        if window is None or window >= S:
-            sdpa = dict(is_causal=True)
-        else:
-            sdpa = dict(attn_mask=band)
-        lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
-            q, k, v, scale=scale, enable_gqa=True, **sdpa))
+        lib = lib_dev = None
+        if softcap is None:
+            sdpa = dict(is_causal=True) if window is None or window >= S else dict(attn_mask=band)
+            library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q, k, v, scale=scale, enable_gqa=True, **sdpa)
+            lib, lib_dev = time_ms(torch, library), device_ms(torch, library)
         pairs = int(band.sum().item())  # (query, key) pairs inside the causal band
         nbytes = 2 * (2 * B * Hq * S * d + 2 * B * Hkv * S * d)
         flops = 4 * B * Hq * d * pairs  # QK^T and PV over the band
         b_ms, b_by = bound(nbytes, flops, BF16_FLOPS_PER_S)
-        log(f"[{label}] B={B} Hq={Hq} Hkv={Hkv} S={S} d={d} window={window} bf16: "
-            f"max_abs_err={err:.3e} (atol {FLASH_ATOL}) kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-            f"sdpa {lib:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
-        rows.append(dict(S=S, window=window, err=err, ms=ms, plain_ms=plain, library_ms=lib,
+        log(f"[{label}] B={B} Hq={Hq} Hkv={Hkv} S={S} d={d} window={window} softcap={softcap} "
+            f"bf16: max_abs_err={err:.3e} (atol {FLASH_ATOL}) kernel {ms:.4f} ms (device "
+            f"{fmt_ms(dev)}), plain {plain:.4f} ms, sdpa {fmt_ms(lib)} (device {fmt_ms(lib_dev)}), "
+            f"bound {b_ms:.5f} ms ({b_by})")
+        rows.append(dict(S=S, window=window, softcap=softcap, err=err, ms=ms, device_ms=dev,
+                         plain_ms=plain, library_ms=lib, library_device_ms=lib_dev,
                          bound_ms=b_ms, bound_by=b_by))
     return rows
 
 
+def paged_inputs(torch, g, *, B, Hkv, G, d, bs, M, ctx, dtype, done_slots=()):
+    """A paged pool of P = B*M + 1 pages (page 0 the sink), each slot's
+    table row a permutation of the rest; ``done_slots`` get ctx 0 and a row
+    of zeros, as the engine leaves a finished slot."""
+    P = B * M + 1
+    q = torch.randn((B, Hkv, G, d), generator=g, device="cuda").to(dtype)
+    kp = torch.randn((P, bs, Hkv, d), generator=g, device="cuda").to(dtype)
+    vp = torch.randn((P, bs, Hkv, d), generator=g, device="cuda").to(dtype)
+    perm = np.random.default_rng(12).permutation(np.arange(1, P)).astype(np.int32).reshape(B, M)
+    ctx = np.asarray(ctx, np.int32)
+    for s in done_slots:
+        perm[s], ctx[s] = 0, 0
+    return (q, kp, vp, torch.tensor(perm, device="cuda"), torch.tensor(ctx, device="cuda")), ctx
+
+
+# (label, dtype, context lengths, window): the serving path's shape (8 slots
+# x 8 kv heads, G = 2, d = 128, 16-key pages, max_seq 160); ragged lengths
+# with a done slot (ctx 0 on the sink page) under a window shorter than the
+# context; the same in f32, the SMOKE configs' dtype
+PAGED_CASES = (("path", "bfloat16", np.linspace(1, 159, 8).astype(np.int32), None),
+               ("ragged, window 40", "bfloat16", [0, 3, 15, 16, 47, 90, 131, 159], 40),
+               ("path f32", "float32", np.linspace(1, 159, 8).astype(np.int32), None))
+
+
 def phase_paged(torch, ops, ref):
+    """The paged-decode kernel against its plain version at every
+    PAGED_CASES row, timed by CUDA events and by device time per launch;
+    the first row is the kernel's entry in the result line."""
     import repro_torch.kernels.paged_attention as pa
 
     g = torch.Generator(device="cuda").manual_seed(12)
     B, Hkv, G, d, bs, M = 8, 8, 2, 128, 16, 10
-    P = B * M + 1
-    q = torch.randn((B, Hkv, G, d), generator=g, device="cuda").to(torch.bfloat16)
-    kp = torch.randn((P, bs, Hkv, d), generator=g, device="cuda").to(torch.bfloat16)
-    vp = torch.randn((P, bs, Hkv, d), generator=g, device="cuda").to(torch.bfloat16)
-    perm = np.random.default_rng(12).permutation(np.arange(1, P)).astype(np.int32)
-    tables = torch.tensor(perm.reshape(B, M), device="cuda")
-    ctx_np = np.linspace(1, M * bs - 1, B).astype(np.int32)
-    ctx = torch.tensor(ctx_np, device="cuda")
-    scale = 1.0 / math.sqrt(d)
-    got = ops.paged_attention(q, kp, vp, tables, ctx, scale=scale)
-    want = ref.paged_attention(q, kp, vp, tables, ctx, scale=scale)
-    torch.cuda.synchronize()
-    err = (got.float() - want.float()).abs().max().item()
-    if not (err <= PAGED_ATOL and torch.isfinite(got).all()):
-        raise AssertionError(f"paged: max|kernel - plain| = {err} > {PAGED_ATOL}")
-    out = torch.empty_like(q)
-    ms = time_ms(torch, lambda: pa.launch(q, kp, vp, tables, ctx, out, scale=scale,
-                                          window=None, softcap=None))
-    plain = time_ms(torch, lambda: ref.paged_attention(q, kp, vp, tables, ctx, scale=scale))
-    keys = int((ctx_np.astype(np.int64) + 1).sum())
-    nbytes = 2 * keys * Hkv * d * 2 + 2 * 2 * B * Hkv * G * d + 4 * B * M + 4 * B
-    flops = 4 * keys * Hkv * G * d
-    b_ms, b_by = bound(nbytes, flops, BF16_FLOPS_PER_S)
-    log(f"[paged] slots={B} Hkv={Hkv} G={G} d={d} bs={bs} ctx={ctx_np.tolist()} bf16: "
-        f"max_abs_err={err:.3e} (atol {PAGED_ATOL}) kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-        f"bound {b_ms:.5f} ms ({b_by})")
-    return dict(err=err, ms=ms, plain_ms=plain, library_ms=None, bound_ms=b_ms, bound_by=b_by)
+    rows = []
+    for label, dtype, ctx_in, window in PAGED_CASES:
+        (q, kp, vp, tables, ctx), ctx_np = paged_inputs(
+            torch, g, B=B, Hkv=Hkv, G=G, d=d, bs=bs, M=M, ctx=ctx_in,
+            dtype=getattr(torch, dtype), done_slots=(0,) if window else ())
+        scale = 1.0 / math.sqrt(d)
+        got = ops.paged_attention(q, kp, vp, tables, ctx, scale=scale, window=window)
+        want = ref.paged_attention(q, kp, vp, tables, ctx, scale=scale, window=window)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        if not (err <= PAGED_ATOL and torch.isfinite(got).all()):
+            raise AssertionError(f"paged {label}: max|kernel - plain| = {err} > {PAGED_ATOL}")
+        out = torch.empty_like(q)
+        kernel = lambda: pa.launch(q, kp, vp, tables, ctx, out, scale=scale,  # noqa: E731
+                                   window=window, softcap=None)
+        ms, dev = time_ms(torch, kernel), device_ms(torch, kernel)
+        plain = time_ms(torch, lambda: ref.paged_attention(q, kp, vp, tables, ctx, scale=scale,
+                                                           window=window))
+        c = ctx_np.astype(np.int64)
+        keys = int((np.minimum(c + 1, window) if window else c + 1).sum())
+        isz = q.element_size()
+        nbytes = 2 * keys * Hkv * d * isz + 2 * isz * B * Hkv * G * d + 4 * B * M + 4 * B
+        flops = 4 * keys * Hkv * G * d
+        b_ms, b_by = bound(nbytes, flops, BF16_FLOPS_PER_S if isz == 2 else F32_FLOPS_PER_S)
+        log(f"[paged] {label}: slots={B} Hkv={Hkv} G={G} d={d} bs={bs} ctx={ctx_np.tolist()} "
+            f"window={window} {dtype}: max_abs_err={err:.3e} (atol {PAGED_ATOL}) kernel "
+            f"{ms:.4f} ms (device {fmt_ms(dev)}), plain {plain:.4f} ms, bound {b_ms:.5f} ms "
+            f"({b_by})")
+        rows.append(dict(case=label, dtype=dtype, window=window, err=err, ms=ms, device_ms=dev,
+                         plain_ms=plain, library_ms=None, bound_ms=b_ms, bound_by=b_by))
+    return rows
 
 
 def phase_bma(torch, ops, ref, *, V=151936, label="bma", seed=13):
@@ -532,9 +652,12 @@ def profile_serving(torch, cfg, model, members, kw, card, paged=True, label="pro
         classes[c] = classes.get(c, 0.0) + e.self_device_time_total
     for c, us in sorted(classes.items(), key=lambda kv: -kv[1]):
         log(f"[{label}]   {100 * us / device_us:5.1f}%  {us / 1e3:9.3f} ms  {c}")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+    hand = [e for e in kernels if kernel_class(e.key) == "hand kernels"]
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    for e in top + [e for e in hand if e not in top]:
         log(f"[{label}]   {100 * e.self_device_time_total / device_us:5.1f}%  "
-            f"{e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<6d} {e.key[:80]}")
+            f"{e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<6d} "
+            f"{e.self_device_time_total / e.count:8.2f} us each  {e.key[:80]}")
     return dict(wall=wall, device_us=device_us, kernels=n, classes=classes)
 
 
@@ -1146,16 +1269,28 @@ def main() -> int:
         f"torch {torch.__version__} cuda {torch.version.cuda}; tf32 off")
 
     secs = _build.build_all()
-    (OUT / "build_log.txt").write_text(
-        "\n".join(f"=== {n} ===\n{t}" for n, t in _build.build_log.items()))
+    logs = {n: _build.nvcc_log(n) for n in _build.SOURCES
+            if _build.library_path(n).with_suffix(".log").exists()}
+    summary, ptxas = build_report(logs, {n: _build.library_path(n) for n in _build.SOURCES})
+    (OUT / "build_log.txt").write_text(summary + "\n\n" + "\n".join(
+        f"=== {n} ===\n{t}" for n, t in logs.items()))
     log(f"[build] {len(_build.SOURCES)} kernels built in {secs:.2f} s into {_build.BUILD_DIR}")
+    log(summary)
+    for lib in ("flash_attention", "paged_attention"):
+        if lib not in ptxas:
+            raise AssertionError(f"[build] no nvcc log beside {lib}'s library")
+        spills = [f["fn"] for f in ptxas[lib]["functions"] if f["spill"]]
+        if spills:
+            raise AssertionError(f"[build] ptxas reports spills in {lib}: {spills}")
+    if not ptxas["flash_attention"]["hmma"]:
+        raise AssertionError("[build] no HMMA instruction in flash_attention's SASS")
 
     from repro_torch import configs
 
     qwen = configs.get_config("qwen3-0.6b")
     flash = phase_flash(torch, ops, ref, F)
-    flash256 = phase_flash(torch, ops, ref, F, Hq=10, Hkv=1, d=256,
-                           cases=((64, 2048), (128, 2048), (128, 16)), label="flash256", seed=17)
+    flash256 = phase_flash(torch, ops, ref, F, Hq=10, Hkv=1, d=256, cases=FLASH256_CASES,
+                           label="flash256", seed=17)
     paged = phase_paged(torch, ops, ref)
     bma = phase_bma(torch, ops, ref)
     bma256k = phase_bma(torch, ops, ref, V=256000, label="bma256k", seed=18)
@@ -1178,13 +1313,13 @@ def main() -> int:
     hybrid_counts, hybrid = phase_slice_hybrid(torch, card)
     counts["rglru_scan"] = hybrid_counts["rglru_scan"]
 
-    f128 = next(r for r in flash if r["S"] == 128)
+    f128 = next(r for r in flash if r["S"] == 128 and r["softcap"] is None)
     bg = next(r for r in bma if r["mode"] == "probs" and r["T"] == 0.0)
     entries = [
         ("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
          "src/repro/kernels/flash_attention.py:30", f128),
         ("paged_attention", "src/repro_torch/kernels/csrc/paged_attention.cu",
-         "src/repro/kernels/paged_attention.py:37", paged),
+         "src/repro/kernels/paged_attention.py:37", paged[0]),
         ("bma_select", "src/repro_torch/kernels/csrc/bma_select.cu",
          "src/repro/kernels/bma_select.py:42", bg),
         ("fused_ec_update", "src/repro_torch/kernels/csrc/fused_ecsghmc.cu",
@@ -1202,7 +1337,8 @@ def main() -> int:
     ]
     (OUT / "result.json").write_text(json.dumps({"card": card, "kernels": kernels,
                                                   "flash": flash, "flash256": flash256,
-                                                  "paged": paged, "bma": bma, "bma256k": bma256k,
+                                                  "paged": paged, "ptxas": ptxas,
+                                                  "bma": bma, "bma256k": bma256k,
                                                   "rglru": rglru,
                                                   "fused_ec": fused, "fused_precond": precond,
                                                   "hybrid": hybrid, "train": train,

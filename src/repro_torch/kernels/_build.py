@@ -2,7 +2,9 @@
 ``csrc/``, all started together, each into a shared library with a plain
 C interface that ``ctypes`` loads.  Libraries are cached under
 ``build/kernels/`` at the repository root, keyed by a hash of the source
-and the flags; a failed build raises.  Nothing here runs at import."""
+and the flags, each beside nvcc's output (``.log``: the ptxas register,
+shared-memory and spill report); a failed build raises.  Nothing here runs
+at import."""
 from __future__ import annotations
 
 import ctypes
@@ -22,7 +24,6 @@ NVCC_FLAGS = (
 )
 
 _libs: dict = {}
-build_log: dict = {}  # name -> nvcc's output (ptxas register/smem report)
 
 
 def _nvcc() -> str:
@@ -33,7 +34,8 @@ def _nvcc() -> str:
     return path
 
 
-def _target(name: str) -> pathlib.Path:
+def library_path(name: str) -> pathlib.Path:
+    """Where the built library of kernel ``name`` lives (or will)."""
     digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
@@ -42,28 +44,33 @@ def _target(name: str) -> pathlib.Path:
 def build_all(names=SOURCES) -> float:
     """Compile every missing library in parallel; returns the seconds spent."""
     t0 = time.perf_counter()
-    todo = [n for n in names if not _target(n).exists()]
+    todo = [n for n in names if not library_path(n).exists()]
     if not todo:
         return 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     procs = []
     for n in todo:
-        tmp = _target(n).with_suffix(f".tmp{os.getpid()}")
+        tmp = library_path(n).with_suffix(f".tmp{os.getpid()}")
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
         procs.append((n, tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                                stderr=subprocess.STDOUT, text=True)))
     failed = []
     for n, tmp, p in procs:
         out, _ = p.communicate()
-        build_log[n] = out
         if p.returncode != 0:
             failed.append(f"--- {n} (nvcc exit {p.returncode}) ---\n{out}")
         else:
-            os.replace(tmp, _target(n))
+            library_path(n).with_suffix(".log").write_text(out)
+            os.replace(tmp, library_path(n))
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return time.perf_counter() - t0
+
+
+def nvcc_log(name: str) -> str:
+    """nvcc's output from the build of kernel ``name``'s library."""
+    return library_path(name).with_suffix(".log").read_text()
 
 
 def library(name: str) -> ctypes.CDLL:
@@ -71,7 +78,7 @@ def library(name: str) -> ctypes.CDLL:
     lib = _libs.get(name)
     if lib is None:
         build_all()
-        lib = ctypes.CDLL(str(_target(name)))
+        lib = ctypes.CDLL(str(library_path(name)))
         _libs[name] = lib
     return lib
 

@@ -9,6 +9,7 @@ through the kernels.
 """
 from __future__ import annotations
 
+import importlib
 import math
 
 import numpy as np
@@ -60,6 +61,13 @@ def _padded_head_dim(d: int, dims) -> int:
     raise ValueError(f"head_dim {d} not in [1, {dims[-1]}]")
 
 
+def _binding(name: str):
+    """The ctypes binding module ``kernels.<name>``.  ``from . import
+    flash_attention`` could give the package's attribute of that name, which
+    is this module's wrapper function until the submodule is first imported."""
+    return importlib.import_module(f"{__package__}.{name}")
+
+
 def _pad_last(x, dp: int):
     d = x.shape[-1]
     return x if d == dp else F.pad(x, (0, dp - d))
@@ -90,10 +98,9 @@ def flash_attention(q, k, v, *, causal=True, window=None, softcap=None, scale=No
     if not on_card:
         out = ref.attention(q, k, v, causal=causal, window=window, softcap=softcap, scale=scale)
     else:
-        from . import flash_attention as _fa
-
         out = torch.empty_like(q)
-        _fa.launch(q, k, v, out, causal=causal, window=window, softcap=softcap, scale=scale)
+        _binding("flash_attention").launch(q, k, v, out, causal=causal, window=window,
+                                           softcap=softcap, scale=scale)
         launches["flash_attention"] += 1
     return out[..., :d] if dp != d else out
 
@@ -131,11 +138,9 @@ def paged_attention(q, k_pages, v_pages, block_tables, context_lens,
         out = ref.paged_attention(q, k_pages, v_pages, block_tables, context_lens,
                                   scale=scale, window=window, softcap=softcap)
     else:
-        from . import paged_attention as _pa
-
         out = torch.empty_like(q)
-        _pa.launch(q, k_pages, v_pages, block_tables, context_lens, out,
-                   scale=scale, window=window, softcap=softcap)
+        _binding("paged_attention").launch(q, k_pages, v_pages, block_tables, context_lens,
+                                           out, scale=scale, window=window, softcap=softcap)
         launches["paged_attention"] += 1
     return out[..., :d] if dp != d else out
 

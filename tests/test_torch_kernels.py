@@ -11,6 +11,8 @@ wrappers has a test.
 """
 from __future__ import annotations
 
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -46,6 +48,7 @@ FLASH_CASES = {
     "d256_mqa_window": dict(B=1, Hq=4, Hkv=1, S=32, d=256, window=8),
     "d200_padded": dict(B=1, Hq=2, Hkv=1, S=16, d=200),
     "noncausal": dict(B=1, Hq=2, Hkv=2, S=16, d=64, causal=False),
+    "ragged_gqa_d128": dict(B=1, Hq=4, Hkv=2, S=37, d=128),  # S past every 32-row tile edge
 }
 
 
@@ -65,6 +68,65 @@ def test_flash_matches_reference_kernel(case):
                                                    jnp.asarray(v), causal=True, **c))
         np.testing.assert_allclose(got, want, atol=ATOL)
     assert launches["flash_attention"] == 0  # the CPU path launches nothing
+
+
+# The card's bf16 flash kernel rounds P (exp(s - m), in [0, 1]) to bf16 before
+# the PV product on the tensor cores; chip_smoke.py holds it at this tolerance.
+FLASH_ATOL = 2e-2
+FLASH_PATH_SHAPES = {  # the serving path's prefill shapes
+    "qwen3_d128": dict(Hq=16, Hkv=8, S=128, d=128, window=None),
+    "recurrentgemma_d256_mqa_window16": dict(Hq=10, Hkv=1, S=128, d=256, window=16),
+}
+
+
+def _flash_bf16_p(q, k, v, *, window, scale, tile=64, halves=2):
+    """The bf16 kernel's arithmetic in plain torch: f32 scores; for each
+    half of every 64-key tile (one warp each), an online softmax over the
+    tiles with l summed from the f32 P and P rounded to bf16 before PV;
+    then the halves merge."""
+    B, Hq, S, d = q.shape
+    G = Hq // k.shape[1]
+    qf = q.float()
+    kf, vf = (x.float().repeat_interleave(G, dim=1) for x in (k, v))
+    pos = torch.arange(S)
+    w = tile // halves
+    parts = []
+    for h in range(halves):
+        m = torch.full((B, Hq, S, 1), -1e30)
+        l = torch.zeros((B, Hq, S, 1))
+        acc = torch.zeros((B, Hq, S, d))
+        for t0 in range(h * w, S, tile):
+            keys = slice(t0, t0 + w)
+            s = qf @ kf[:, :, keys].transpose(-1, -2) * scale
+            lag = pos[:, None] - pos[None, keys]
+            keep = lag >= 0
+            if window is not None:
+                keep &= lag < window
+            s = s.masked_fill(~keep, -torch.inf)
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            p = torch.exp(s - m_new)
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(-1, keepdim=True)
+            acc = acc * corr + p.bfloat16().float() @ vf[:, :, keys]
+            m = m_new
+        parts.append((m, l, acc))
+    m = torch.stack([p[0] for p in parts]).amax(0)
+    l = sum(pl * torch.exp(pm - m) for pm, pl, _ in parts)
+    acc = sum(pa * torch.exp(pm - m) for pm, _, pa in parts)
+    return acc / l.clamp_min(1e-30)
+
+
+@pytest.mark.parametrize("shape", sorted(FLASH_PATH_SHAPES))
+def test_flash_bf16_p_rounding_fits_tolerance(shape):
+    c = FLASH_PATH_SHAPES[shape]
+    B, Hq, Hkv, S, d = 1, c["Hq"], c["Hkv"], c["S"], c["d"]
+    q, k, v = (torch.tensor(_np(20 + i, B, h, S, d)).to(torch.bfloat16)
+               for i, h in enumerate((Hq, Hkv, Hkv)))
+    scale = 1.0 / np.sqrt(d)
+    got = _flash_bf16_p(q, k, v, window=c["window"], scale=scale)
+    want = ref.attention(q.float(), k.float(), v.float(), window=c["window"], scale=scale)
+    gap = (got - want).abs().max().item()
+    assert 0 < gap < FLASH_ATOL / 4, gap
 
 
 def test_flash_bf16_keeps_dtype():
@@ -98,6 +160,7 @@ PAGED_CASES = {
     "ctx0": dict(B=3, Hkv=2, G=1, d=16, bs=8, M=2, ctx=[0, 0, 5]),
     "window": dict(B=3, Hkv=2, G=2, d=16, bs=8, M=4, window=11),
     "softcap": dict(B=2, Hkv=2, G=2, d=16, bs=8, M=3, softcap=3.0),
+    "ragged_window": dict(B=4, Hkv=2, G=2, d=64, bs=16, M=4, ctx=[0, 17, 40, 63], window=20),
 }
 
 
@@ -280,6 +343,41 @@ def test_bma_guards(guard):
         ops.fused_bma_select(**BMA_GUARDS[guard])
 
 
+# The card branch of the two attention wrappers, in a fresh interpreter (so no
+# binding module is imported yet), with the library, the device test and the
+# stream stubbed: each wrapper reaches its kernel's C entry once and counts it.
+_CARD_BRANCH = """
+import types, torch
+from repro_torch.kernels import _build, ops
+calls = []
+lib = types.SimpleNamespace(**{n: (lambda n: lambda *a: calls.append(n) or 0)(n)
+                               for n in ("flash_attention_fwd", "paged_attention_fwd")})
+_build.library = lambda name: lib
+ops._on_card = lambda *t: True
+torch.cuda.current_stream = lambda device=None: types.SimpleNamespace(cuda_stream=0)
+x = torch.zeros((1, 2, 16, 64), dtype=torch.bfloat16)
+if WRAPPER == "flash_attention":
+    ops.flash_attention(x, x[:, :1].contiguous(), x[:, :1].contiguous())
+else:
+    pages = torch.zeros((3, 8, 2, 64), dtype=torch.bfloat16)
+    ops.paged_attention(x[:, :, :2].contiguous(), pages, pages,
+                        torch.ones((1, 2), dtype=torch.int32), torch.ones(1, dtype=torch.int32))
+assert calls == [WRAPPER + "_fwd"], calls
+assert ops.launches[WRAPPER] == 1, ops.launches
+"""
+
+
+@pytest.mark.parametrize("wrapper", ["flash_attention", "paged_attention"])
+def test_card_branch_reaches_the_c_entry(wrapper):
+    import subprocess
+    import sys
+
+    code = f"WRAPPER = {wrapper!r}\n" + _CARD_BRANCH
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=300, env={**os.environ, "PYTHONPATH": os.pathsep.join(sys.path)})
+    assert out.returncode == 0, out.stderr
+
+
 # ---------------------------------------------------------------------------
 # on the card (skipped without one; chip_smoke.py is the card's check)
 # ---------------------------------------------------------------------------
@@ -304,10 +402,19 @@ def test_cuda_kernels_match_plain_versions(card):
     k, v = k[:, :1].contiguous(), v[:, :1].contiguous()
     torch.testing.assert_close(ops.flash_attention(q, k, v, window=16).float(),
                                ref.attention(q, k, v, window=16).float(), atol=2e-2, rtol=0)
+    for S, kw in ((100, {}), (128, dict(softcap=50.0))):  # ragged S; gemma2's softcap
+        q, k, v = (torch.tensor(_np(i, 1, h, S, 128), device=card).to(torch.bfloat16)
+                   for i, h in ((10, 16), (11, 8), (12, 8)))
+        torch.testing.assert_close(ops.flash_attention(q, k, v, **kw).float(),
+                                   ref.attention(q, k, v, **kw).float(), atol=2e-2, rtol=0)
     args = [torch.tensor(a, device=card) for a in _paged_case(3, B=4, Hkv=2, G=2, d=64, bs=16,
                                                                  M=3, permute=True)]
     torch.testing.assert_close(ops.paged_attention(*args), ref.paged_attention(*args),
                                atol=1e-5, rtol=0)
+    args = [torch.tensor(a, device=card) for a in _paged_case(4, B=4, Hkv=2, G=2, d=64, bs=16,
+                                                                 M=4, ctx=[0, 17, 40, 63])]
+    torch.testing.assert_close(ops.paged_attention(*args, window=20),
+                               ref.paged_attention(*args, window=20), atol=1e-5, rtol=0)
     logits = torch.tensor(_np(5, 3, 4, 5000), device=card)
     gum = torch.tensor(_np(6, 4, 5000), device=card)
     from repro_torch.kernels import bma_select as kbma
