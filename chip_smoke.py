@@ -19,8 +19,14 @@ It imports torch, numpy and repro_torch only, and:
    the card could take: flash at qwen3's head_dim 128 (S 64, ragged 100,
    128, and softcap 50 at 128) and at recurrentgemma's 256
    (``[flash256]``, window 2048 and 16), paged decode at the path's shape,
-   with ragged lengths, a done slot and a window, and in f32, and the
-   RG-LRU scan bit for bit up to a 32k-token prompt (``[rglru]``);
+   with ragged lengths, a done slot and a window, and in f32, the select
+   kernel at both vocabularies in both modes, greedy, at T=0.7/top-k 50,
+   with forced ties at the threshold, at top-k 128 (its candidate
+   capacity), 200 and V, and on a flat row (``[bma]``, ``[bma256k]``), and
+   the RG-LRU scan
+   bit for bit up to a 32k-token prompt, with an R that is not made of
+   16-byte pieces, and with f16 and mixed-dtype inputs (``[rglru]``); the
+   select and scan rows also by device time per call;
 4. the sampler: checks the fused EC-SGHMC kernel's in-kernel Philox noise
    against N(0, 1) over the 2.38e9 elements of a qwen3-0.6b K=4 step, runs
    fused EC-SGHMC on a Gaussian target against the exact stationary
@@ -33,7 +39,7 @@ It imports torch, numpy and repro_torch only, and:
    with the dense engine, holds the whole engine on the card against the
    CPU at the SMOKE size, and profiles a short paged run with
    torch.profiler (device time by kernel class, the device's busy share of
-   the unprofiled wall clock);
+   the unprofiled wall clock, bma_select's device time per tick);
 6. trains K=4 chains of qwen3-0.6b at full width for 8 EC-SGHMC steps
    through ``train.loop.run`` with the fused kernel, checks the metrics,
    the launch count and the chains' spread, and profiles two more steps;
@@ -118,11 +124,12 @@ def bound(nbytes: float, flops: float, flops_rate: float) -> tuple[float, str]:
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
-def device_ms(torch, fn, reps: int = 20, warmup: int = 3):
+def device_ms(torch, fn, reps: int = 20, warmup: int = 3, split=None):
     """Device time of one ``fn()``: the summed device time of every kernel
     it launches over ``reps`` calls under torch.profiler, over ``reps``.
     Unlike ``time_ms`` it leaves out the launch from Python.  None when the
-    profiler records no device time."""
+    profiler records no device time.  ``split``, a dict, receives the ms
+    per call of each kernel, keyed by the name's first word matching it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -134,9 +141,16 @@ def device_ms(torch, fn, reps: int = 20, warmup: int = 3):
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA)
+        kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        us = sum(e.self_device_time_total for e in kernels)
         if us > 0:
+            if split is not None:
+                import re
+
+                for e in kernels:
+                    m = re.search(r"(\w+)<", e.key)
+                    name = m.group(1) if m else e.key[:40]
+                    split[name] = split.get(name, 0.0) + e.self_device_time_total / 1e3 / reps
             return us / 1e3 / reps
     return None
 
@@ -322,74 +336,114 @@ def phase_paged(torch, ops, ref):
     return rows
 
 
+# phase_bma's rows: (label, T, top_k, logits).  The first two are the
+# serving paths; then many exact duplicates at the k-th value ("tied"), top_k
+# at the kernel's candidate capacity (KCAP = 128), above it (the radix
+# passes), top_k = V (everything kept), and a row of equal logits ("flat":
+# every element ties at the threshold; the kernel lists one per warp).
+BMA_ROWS = (("greedy", 0.0, 0, "random"), ("T=0.7 top_k=50", 0.7, 50, "random"),
+            ("ties, top_k=50", 0.7, 50, "tied"), ("top_k=KCAP", 0.7, 128, "random"),
+            ("top_k=200", 0.7, 200, "random"), ("top_k=V", 0.7, -1, "random"),
+            ("flat, top_k=50", 0.7, 50, "flat"))
+
+
+def bma_tied_logits(torch, g, K, S, V):
+    """Member logits that are a function of an integer level per (slot,
+    element), so elements of one level have bit-equal mixture values: a
+    rounded normal gives a few hundred elements at the level that holds
+    the 50th largest."""
+    level = torch.round(2.0 * torch.randn((S, V), generator=g, device="cuda"))
+    w = 1.0 + 0.1 * torch.arange(K, device="cuda", dtype=torch.float32)
+    return (level[None] * w[:, None, None] + 0.5 * w[:, None, None]).contiguous()
+
+
 def phase_bma(torch, ops, ref, *, V=151936, label="bma", seed=13):
     """The select kernel against its plain version at K=4, S=8 over a
     model's vocabulary (qwen3-0.6b's by default; ``[bma256k]`` is
-    recurrentgemma-2b's, whose last 4096-chunk is ragged), in both modes,
-    greedy and at T=0.7/top-k 50."""
+    recurrentgemma-2b's), in both modes, at every BMA_ROWS row: logp within
+    BMA_LOGP_ATOL, tokens equal except where the plain version's top two
+    selection values lie within that tolerance; timed by CUDA events and by
+    device time per call (the sum of its kernels)."""
     import repro_torch.kernels.bma_select as bs_mod
     from repro_torch.serve.sampling import _top_k_mask, gumbel_noise
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     K, S = 4, 8
-    logits = 3.0 * torch.randn((K, S, V), generator=g, device="cuda")
+    inputs = {"random": 3.0 * torch.randn((K, S, V), generator=g, device="cuda"),
+              "tied": bma_tied_logits(torch, g, K, S, V),
+              "flat": torch.zeros((K, S, V), device="cuda")}
     gumbel = gumbel_noise((S, V), g, "cuda")
     rows = []
     for mode in ("probs", "logprobs"):
-        for T, top_k in ((0.0, 0), (0.7, 50)):
+        for case, T, top_k, kind in BMA_ROWS:
+            top_k = V if top_k < 0 else top_k
+            lg = inputs[kind]
             gum = gumbel if T > 0 else None
-            tok, logp = bs_mod.launch(logits, gum, mode=mode, temperature=T, top_k=top_k,
-                                      chunk=ops.BMA_CHUNK)
-            rtok, rlogp = ref.bma_select(logits, gum, mode=mode, temperature=T, top_k=top_k)
+            kw = dict(mode=mode, temperature=T, top_k=top_k)
+            tok, logp = bs_mod.launch(lg, gum, **kw)
+            rtok, rlogp = ref.bma_select(lg, gum, **kw)
             torch.cuda.synchronize()
             err = (logp - rlogp).abs().max().item()
             if not (err <= BMA_LOGP_ATOL and torch.isfinite(logp).all()):
-                raise AssertionError(f"{label} {mode} T={T}: max|logp - plain| = {err} > {BMA_LOGP_ATOL}")
+                raise AssertionError(f"{label} {mode} {case}: max|logp - plain| = {err} > {BMA_LOGP_ATOL}")
             # a token may differ only where the plain version's top two
             # selection values lie within the logp tolerance
             sel = rlogp
+            kept = None
             if T > 0:
                 sel = rlogp / T
-                sel = (_top_k_mask(sel, top_k) if top_k else sel) + gumbel
+                if top_k:
+                    sel = _top_k_mask(sel, top_k)
+                    kept = torch.isfinite(sel).sum(-1)
+                sel = sel + gumbel
             tol = BMA_LOGP_ATOL / (T if T > 0 else 1.0)
-            ties = 0
+            ties_ok = 0
             for s in np.nonzero((tok != rtok).cpu().numpy())[0]:
                 a, b = sel[s, int(tok[s])].item(), sel[s, int(rtok[s])].item()
                 if not abs(a - b) <= tol:
-                    raise AssertionError(f"{label} {mode} T={T} slot {s}: token {int(tok[s])} vs "
+                    raise AssertionError(f"{label} {mode} {case} slot {s}: token {int(tok[s])} vs "
                                          f"plain {int(rtok[s])}, selection gap {abs(a - b)} > {tol}")
-                ties += 1
-            ms = time_ms(torch, lambda: bs_mod.launch(logits, gum, mode=mode, temperature=T,
-                                                      top_k=top_k, chunk=ops.BMA_CHUNK))
-            plain = time_ms(torch, lambda: ref.bma_select(logits, gum, mode=mode, temperature=T,
-                                                          top_k=top_k))
+                ties_ok += 1
+            kernel = lambda: bs_mod.launch(lg, gum, **kw)  # noqa: E731
+            split: dict = {}
+            ms, dev = time_ms(torch, kernel), device_ms(torch, kernel, split=split)
+            plain = time_ms(torch, lambda: ref.bma_select(lg, gum, **kw))
             nbytes = 4 * (K * S * V + S * V + (S * V if T > 0 else 0) + S)
             flops = 6 * K * S * V
             b_ms, b_by = bound(nbytes, flops, F32_FLOPS_PER_S)
-            log(f"[{label}] K={K} S={S} V={V} mode={mode} T={T} top_k={top_k}: "
-                f"max_abs_err={err:.3e} (atol {BMA_LOGP_ATOL}) token mismatches within tol={ties} "
-                f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
-            rows.append(dict(V=V, mode=mode, T=T, top_k=top_k, err=err, ms=ms, plain_ms=plain,
-                             library_ms=None, bound_ms=b_ms, bound_by=b_by, ties=ties))
+            kept_s = "" if kept is None else f" kept per slot {kept.min().item()}-{kept.max().item()}"
+            log(f"[{label}] K={K} S={S} V={V} mode={mode} {case} (T={T} top_k={top_k}):{kept_s} "
+                f"max_abs_err={err:.3e} (atol {BMA_LOGP_ATOL}) token mismatches within "
+                f"tol={ties_ok} kernel {ms:.4f} ms (device {fmt_ms(dev)}: "
+                + ", ".join(f"{n} {1e3 * t:.2f} us" for n, t in split.items())
+                + f"), plain {plain:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
+            rows.append(dict(V=V, mode=mode, case=case, T=T, top_k=top_k, err=err, ms=ms,
+                             device_ms=dev, device_split_ms=split, plain_ms=plain,
+                             library_ms=None, bound_ms=b_ms,
+                             bound_by=b_by, ties=ties_ok))
     return rows
 
 
 # The RG-LRU scan's checks: (label, (B, S, R), dtype, with h0).  The first
 # two are the hybrid slice's prefill shapes (recurrentgemma-2b, R = 2560);
-# (1, 32768, 2560) is a 32k-token prompt.
+# (1, 32768, 2560) is a 32k-token prompt; R = 77 in bf16 is not made of
+# whole 16-byte pieces, so the kernel stages its tiles with plain loads.
 RGLRU_CASES = [("path S=64", (1, 64, 2560), "float32", False),
                ("path S=128", (1, 128, 2560), "float32", False),
                ("batch", (4, 4096, 2560), "float32", False),
                ("32k prompt", (1, 32768, 2560), "float32", False),
                ("ragged, h0", (3, 1000, 1000), "float32", True),
-               ("bf16 inputs, h0", (2, 4096, 2560), "bfloat16", True)]
+               ("bf16 inputs, h0", (2, 4096, 2560), "bfloat16", True),
+               ("odd R, bf16, h0", (2, 300, 77), "bfloat16", True)]
 
 
 def phase_rglru(torch, ops, ref):
     """The scan kernel against its plain version on the card, bit for bit
-    (max ULP 0), at every RGLRU_CASES shape; kernel time (median of 20)
-    and the plain version's (median of 20, of 3 at S >= 4096) beside the
-    byte bound.  A CUDA call whose inputs require grad must raise."""
+    (max ULP 0), at every RGLRU_CASES shape; kernel time (median of 20),
+    device time per launch, and the plain version's time (median of 20, of
+    3 at S >= 4096) beside the byte bound.  f16 and mixed-dtype inputs
+    through ``ops.rglru_scan`` (cast to f32) are bitwise too.  A CUDA call
+    whose inputs require grad must raise."""
     import repro_torch.kernels.rglru as rg
 
     g = torch.Generator(device="cuda").manual_seed(16)
@@ -409,19 +463,29 @@ def phase_rglru(torch, ops, ref):
             raise AssertionError(f"rglru {label} {(B, S, R)}: not bitwise equal to the plain "
                                  f"version (max abs err {err}, {ulp} ULP)")
         out = torch.empty_like(got)
-        ms = time_ms(torch, lambda: rg.launch(a, x, h0, out))
+        kernel = lambda: rg.launch(a, x, h0, out)  # noqa: E731
+        ms, dev = time_ms(torch, kernel), device_ms(torch, kernel)
         long = S >= 4096
         plain = time_ms(torch, lambda: ref.rglru_scan(a, x, h0), reps=3 if long else 20,
                         warmup=1 if long else 3)
         nbytes = (2 * a.element_size() + 4) * B * S * R + (4 * B * R if with_h0 else 0)
         b_ms, b_by = bound(nbytes, 2 * B * S * R, F32_FLOPS_PER_S)
         log(f"[rglru] {label} (B, S, R)={(B, S, R)} {dtype}{' + h0' if with_h0 else ''}: bitwise "
-            f"equal {same}, max_abs_err={err:.3e}, max ULP {ulp:.0f}; kernel {ms:.4f} ms, plain "
-            f"{plain:.4f} ms{' (median of 3)' if long else ''}, bound {b_ms:.5f} ms ({b_by}, "
-            f"{nbytes / 1e6:.2f} MB); library: none")
+            f"equal {same}, max_abs_err={err:.3e}, max ULP {ulp:.0f}; kernel {ms:.4f} ms (device "
+            f"{fmt_ms(dev)}), plain {plain:.4f} ms{' (median of 3)' if long else ''}, bound "
+            f"{b_ms:.5f} ms ({b_by}, {nbytes / 1e6:.2f} MB); library: none")
         rows.append(dict(label=label, shape=(B, S, R), dtype=dtype, err=err, ulp=ulp, ms=ms,
-                         plain_ms=plain, library_ms=None, bound_ms=b_ms, bound_by=b_by))
+                         device_ms=dev, plain_ms=plain, library_ms=None, bound_ms=b_ms,
+                         bound_by=b_by))
         del a, x, h0, got, want, out
+    a = 0.9 + 0.099 * torch.rand((1, 64, 2560), generator=g, device="cuda")
+    x = torch.randn((1, 64, 2560), generator=g, device="cuda")
+    for da, dx in (("float16", "float16"), ("float32", "bfloat16"), ("float16", "float32")):
+        a_, x_ = a.to(getattr(torch, da)), x.to(getattr(torch, dx))
+        if not torch.equal(ops.rglru_scan(a_, x_), ref.rglru_scan(a_, x_)):
+            raise AssertionError(f"rglru a {da}, x {dx}: not bitwise equal to the plain version")
+    log("[rglru] (1, 64, 2560) with a/x f16/f16, f32/bf16, f16/f32 through ops.rglru_scan: "
+        "bitwise equal to the plain version")
     a = torch.rand((1, 8, 16), device="cuda", requires_grad=True)
     try:
         ops.rglru_scan(a, torch.rand((1, 8, 16), device="cuda"))
@@ -598,8 +662,8 @@ def phase_slice_hybrid(torch, card):
 
 
 KERNEL_CLASSES = (  # (label, substrings of a device kernel's name), first match wins
-    ("hand kernels", ("flash_fwd", "paged_fwd", "member_stats", "mixture", "normalize",
-                      "topk_threshold", "select_partial", "select_final", "rglru_scan")),
+    ("hand kernels", ("flash_fwd", "paged_fwd", "bma_stats", "bma_mix", "bma_radix", "bma_pick",
+                      "rglru_scan")),
     ("GEMM", ("gemm", "nvjet", "cutlass", "sm90_xmma", "cublas")),
     ("copies and casts", ("copy",)),
 )
@@ -658,7 +722,12 @@ def profile_serving(torch, cfg, model, members, kw, card, paged=True, label="pro
         log(f"[{label}]   {100 * e.self_device_time_total / device_us:5.1f}%  "
             f"{e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<6d} "
             f"{e.self_device_time_total / e.count:8.2f} us each  {e.key[:80]}")
-    return dict(wall=wall, device_us=device_us, kernels=n, classes=classes)
+    bma_us = sum(e.self_device_time_total for e in kernels if "bma_" in e.key)
+    ticks = max(rep.decode_steps, 1)
+    log(f"[{label}]   bma_select: {bma_us / 1e3:.3f} ms of device time over {rep.decode_steps} "
+        f"ticks = {bma_us / ticks:.2f} us per tick (one call per tick; all its kernels)")
+    return dict(wall=wall, device_us=device_us, kernels=n, classes=classes,
+                bma_us_per_tick=bma_us / ticks)
 
 
 def phase_smoke_engine(torch, arch="qwen3-0.6b", paged=True, kernels=SERVING_KERNELS,

@@ -8,67 +8,161 @@
 //
 // What bounds it on this card: bytes.  a and x are read once and h written
 // once, 12 bytes per element in f32 (8 in bf16), one multiply and one add per
-// element, so the least time is (bytes / 3.35 TB/s).
+// element, so the least time is (bytes / 3.35 TB/s).  The recurrence itself
+// is a dependent multiply-then-add chain of ~8 cycles per step, while one
+// step's bytes across R = 2560 channels take ~17 cycles at 3.35 TB/s: a strictly
+// sequential scan per channel can reach the byte bound if enough loads are in
+// flight, so the TPU kernel's chunked superposition (h = local scan +
+// cumprod(a) * carry), which would change the rounding, is not needed.
 //
-// Design, the simplest correct one: one thread per (b, r) channel walks the
-// whole sequence, so the carry never leaves a register (the TPU kernel's
-// block-to-block carry in VMEM scratch becomes the thread's loop).
-// Consecutive threads take consecutive r, so each time step's loads and
-// stores are coalesced.  The loads of a and x do not depend on h, so the loop
-// reads UNROLL steps ahead before it updates, keeping that many loads in
-// flight per thread.  The update is __fadd_rn(__fmul_rn(a, h), x): a multiply
-// and an add, never contracted into an FMA, which equals the plain PyTorch
-// version bit for bit.  Weak where B*R is small: at B = 1, R = 2560 only 20
-// blocks of 128 threads run and the card's bandwidth is mostly idle; the TPU
-// kernel's chunked superposition (h = local scan + cumprod(a) * carry) would
-// fill it, and is left for later work.
+// Design: one warp per block owns a strip of STRIP = 16 channels of one batch
+// row (160 blocks at B = 1, R = 2560), so each time step's strip segment is
+// 64 bytes in f32 (two 32-byte sectors) or 32 in bf16.  The warp stages tiles
+// of [TILE steps x STRIP channels] of a and x into a ring of STAGES tiles in
+// shared memory with 16-byte cp.async copies (cache-global, with an L2
+// prefetch of 256 bytes, so a row's neighbouring strips come in one DRAM
+// burst), keeping STAGES - 1 tiles in flight: 28 KB a block in f32, ~4.6 MB
+// across the card at B = 1.  Lanes 0..15 each run one channel's recurrence
+// out of shared memory, in the same order as the plain version:
+// __fadd_rn(__fmul_rn(a, h), x), never contracted into an FMA, so the result
+// equals the plain PyTorch version bit for bit.  h is stored straight from
+// the lanes, 16 consecutive floats per step (coalesced).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int THREADS = 128;
-constexpr int UNROLL = 16;
+constexpr int STRIP = 16;  // channels per block (lanes 0..15 scan)
+constexpr int TILE = 32;   // time steps per staged tile
+constexpr int STAGES = 8;  // tiles in the ring; STAGES - 1 in flight
+constexpr int UNROLL = 8;  // steps read from shared memory ahead of the chain
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global.L2::256B [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+}
+
+// VEC: a and x are staged with 16-byte copies, lane l copying piece l % PPR
+// of rows l / PPR + j * RPP of a tile; its source pointers are set up once,
+// so a copy costs one address add and staging does not crowd the warp's
+// instruction stream.  Otherwise (R not a multiple of 16 / sizeof(T), or an
+// unaligned pointer) the tiles are staged with plain loads.
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(32)
 rglru_scan(const T* __restrict__ a, const T* __restrict__ x, const float* __restrict__ h0,
            float* __restrict__ out, long long S, int R) {
-  const int r = blockIdx.x * THREADS + threadIdx.x;
-  if (r >= R) return;
-  const size_t base = (size_t)blockIdx.y * (size_t)S * R + r;
-  float h = h0 != nullptr ? h0[(size_t)blockIdx.y * R + r] : 0.f;
-  long long t = 0;
-  for (; t + UNROLL <= S; t += UNROLL) {
-    float av[UNROLL], xv[UNROLL];
+  constexpr int EPP = 16 / (int)sizeof(T);  // elements per 16-byte piece
+  constexpr int PPR = STRIP / EPP;          // pieces per row
+  constexpr int RPP = 32 / PPR;             // rows one warp-wide pass of copies covers
+  __shared__ __align__(16) T sa[STAGES * TILE * STRIP];
+  __shared__ __align__(16) T sx[STAGES * TILE * STRIP];
+  const int lane = threadIdx.x;
+  const int r0 = blockIdx.x * STRIP, nch = min(STRIP, R - r0);
+  const size_t base = (size_t)blockIdx.y * (size_t)S * R + r0;
+  const long long ntiles = (S + TILE - 1) / TILE;
+  const int prow = lane / PPR, pcol = (lane % PPR) * EPP;  // this lane's piece
+  const bool live = pcol < nch;  // nch is a multiple of EPP when VEC
+  const T* ga = a + base + (size_t)prow * R + pcol;
+  const T* gx = x + base + (size_t)prow * R + pcol;
+  const size_t pass = (size_t)RPP * R;
+  auto stage = [&](long long t, int slot) {  // steps [t * TILE, (t + 1) * TILE) into a ring slot
+    const long long t0 = t * TILE;
+    const int steps = (int)min((long long)TILE, S - t0);
+    T* da = sa + slot * TILE * STRIP;
+    T* dx = sx + slot * TILE * STRIP;
+    if (VEC) {
+      if (!live) return;
+      const T* pa = ga + (size_t)t0 * R;
+      const T* px = gx + (size_t)t0 * R;
 #pragma unroll
-    for (int i = 0; i < UNROLL; ++i) {
-      const size_t o = base + (size_t)(t + i) * R;
-      av[i] = to_f32(a[o]);
-      xv[i] = to_f32(x[o]);
+      for (int j = 0; j < TILE / RPP; ++j)
+        if (prow + j * RPP < steps) {
+          cp_async16(da + (prow + j * RPP) * STRIP + pcol, pa + j * pass);
+          cp_async16(dx + (prow + j * RPP) * STRIP + pcol, px + j * pass);
+        }
+    } else {
+      for (int q = lane; q < steps * STRIP; q += 32) {
+        const int i = q / STRIP, c = q % STRIP;
+        if (c < nch) {
+          const size_t o = base + (size_t)(t0 + i) * R + c;
+          da[i * STRIP + c] = a[o];
+          dx[i * STRIP + c] = x[o];
+        }
+      }
     }
+  };
 #pragma unroll
-    for (int i = 0; i < UNROLL; ++i) {
-      h = __fadd_rn(__fmul_rn(av[i], h), xv[i]);
-      out[base + (size_t)(t + i) * R] = h;
+  for (int p = 0; p < STAGES - 1; ++p) {
+    if (p < ntiles) stage(p, p);
+    cp_async_commit();
+  }
+  const bool mine = lane < nch;
+  float h = (mine && h0 != nullptr) ? h0[(size_t)blockIdx.y * R + r0 + lane] : 0.f;
+  // Full tiles in a loop with no other path in it: with the partial tile's
+  // loop beside it, the compiler kept fewer shared-memory reads ahead of
+  // the chain (70 registers against 144) and a long scan ran markedly
+  // slower on the H100.
+  const long long nfull = S / TILE;
+  for (long long tile = 0; tile < ntiles; ++tile) {
+    // tile's copies (this lane's) are done; the warp barrier makes every
+    // lane's visible and ends the reads of the slot the next copy reuses
+    cp_async_wait<STAGES - 2>();
+    __syncwarp();
+    const long long next = tile + STAGES - 1;
+    if (next < ntiles) stage(next, (int)(next % STAGES));
+    cp_async_commit();
+    if (!mine || tile == nfull) continue;
+    const int slot = (int)(tile % STAGES);
+    const T* A = sa + slot * TILE * STRIP + lane;
+    const T* X = sx + slot * TILE * STRIP + lane;
+    float* o = out + base + (size_t)tile * TILE * R + lane;
+#pragma unroll
+    for (int i = 0; i < TILE; i += UNROLL) {
+      float av[UNROLL], xv[UNROLL];
+#pragma unroll
+      for (int j = 0; j < UNROLL; ++j) {
+        av[j] = to_f32(A[(i + j) * STRIP]);
+        xv[j] = to_f32(X[(i + j) * STRIP]);
+      }
+#pragma unroll
+      for (int j = 0; j < UNROLL; ++j) {
+        h = __fadd_rn(__fmul_rn(av[j], h), xv[j]);
+        o[(size_t)(i + j) * R] = h;
+      }
     }
   }
-  for (; t < S; ++t) {
-    const size_t o = base + (size_t)t * R;
-    h = __fadd_rn(__fmul_rn(to_f32(a[o]), h), to_f32(x[o]));
-    out[o] = h;
+  if (mine && nfull < ntiles) {  // the last, partial tile: its copies were waited for above
+    const T* A = sa + (int)(nfull % STAGES) * TILE * STRIP + lane;
+    const T* X = sx + (int)(nfull % STAGES) * TILE * STRIP + lane;
+    float* o = out + base + (size_t)nfull * TILE * R + lane;
+    const int steps = (int)(S - nfull * TILE);
+    for (int i = 0; i < steps; ++i) {
+      h = __fadd_rn(__fmul_rn(to_f32(A[i * STRIP]), h), to_f32(X[i * STRIP]));
+      o[(size_t)i * R] = h;
+    }
   }
 }
 
 template <typename T>
 int launch(const void* a, const void* x, const float* h0, float* out, int B, long long S, int R,
            cudaStream_t stream) {
-  dim3 grid((R + THREADS - 1) / THREADS, B);
-  rglru_scan<T><<<grid, THREADS, 0, stream>>>(static_cast<const T*>(a), static_cast<const T*>(x),
-                                              h0, out, S, R);
+  const dim3 grid((R + STRIP - 1) / STRIP, B);
+  const bool vec = R % (16 / (int)sizeof(T)) == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const T* at = static_cast<const T*>(a);
+  const T* xt = static_cast<const T*>(x);
+  const auto kern = vec ? rglru_scan<T, true> : rglru_scan<T, false>;
+  kern<<<grid, 32, 0, stream>>>(at, xt, h0, out, S, R);
   return (int)cudaGetLastError();
 }
 

@@ -21,7 +21,6 @@ from . import ref
 launches = {"flash_attention": 0, "paged_attention": 0, "bma_select": 0, "fused_ec_update": 0,
             "fused_precond_ec_update": 0, "rglru_scan": 0}
 
-BMA_CHUNK = 4096  # vocabulary elements per bma_select block
 _ATTN_DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -150,16 +149,18 @@ def paged_attention(q, k_pages, v_pages, block_tables, context_lens,
 
 def rglru_scan(a, x, h0=None):
     """The linear recurrence h_t = a_t * h_{t-1} + x_t over axis 1.  a, x:
-    (B, S, R) of one dtype, f32 or bf16; h0: (B, R) or None, the carry
-    before step 0.  Returns h (B, S, R) f32.  The CUDA kernel has no
-    backward (that is the training slice's), so on the card a call whose
-    inputs require grad raises."""
+    (B, S, R) of any float dtype, as the reference takes them; h0: (B, R) or
+    None, the carry before step 0.  Returns h (B, S, R) f32.  The kernel
+    reads a and x both f32 or both bf16; any other pair is cast to f32
+    first, as the reference casts its inputs (f16 and bf16 widen to f32
+    exactly).  The CUDA kernel has no backward (that is the training
+    slice's), so on the card a call whose inputs require grad raises."""
     on_card = _on_card(*(t for t in (a, x, h0) if t is not None))
     if a.ndim != 3 or x.shape != a.shape:
         raise ValueError(f"a and x must be (B, S, R) of one shape, got {tuple(a.shape)}, "
                          f"{tuple(x.shape)}")
-    if x.dtype != a.dtype or a.dtype not in _ATTN_DTYPES:
-        raise ValueError(f"a and x must share one dtype of f32 or bf16, got {a.dtype}, {x.dtype}")
+    if not (a.is_floating_point() and x.is_floating_point()):
+        raise ValueError(f"a and x must be floating point, got {a.dtype}, {x.dtype}")
     B, S, R = a.shape
     if h0 is not None:
         if h0.shape != (B, R) or not h0.is_floating_point():
@@ -174,6 +175,8 @@ def rglru_scan(a, x, h0=None):
                                   "waits for the hybrid family's training slice")
     if B > 65535:
         raise ValueError(f"kernel takes B <= 65535, got {B}")
+    if not (a.dtype == x.dtype and a.dtype in _ATTN_DTYPES):
+        a, x = a.float(), x.float()
     out = torch.empty((B, S, R), dtype=torch.float32, device=a.device)
     if out.numel() == 0:
         return out
@@ -220,7 +223,7 @@ def fused_bma_select(logits, generator=None, *, mode="probs", temperature=0.0, t
     if K > _bs.MAX_K:
         raise ValueError(f"kernel takes K <= {_bs.MAX_K} members, got {K}")
     tok, logp = _bs.launch(logits, gumbel, mode=mode, temperature=float(temperature),
-                           top_k=int(top_k), chunk=BMA_CHUNK)
+                           top_k=int(top_k))
     launches["bma_select"] += 1
     return tok, logp
 

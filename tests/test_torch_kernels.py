@@ -21,9 +21,13 @@ import torch
 from repro import kernels as jkernels
 from repro.kernels import bma_select as jbma
 from repro.kernels import ref as jref
+from repro_torch.kernels import bma_select as kbma
 from repro_torch.kernels import launches, ops, ref
 from repro_torch.serve.engine.bma import mixture_logprobs
-from repro_torch.serve.sampling import SamplingParams, gumbel_noise, select_tokens
+from repro_torch.serve.sampling import SamplingParams, _top_k_mask, gumbel_noise, select_tokens
+from util import import_hypothesis
+
+given, settings, st = import_hypothesis()
 
 # The reference suite's tolerance for these pairings (tests/test_paged_attention.py).
 # Measured gaps on these inputs: attention <= 7.0e-7, paged and bma below that.
@@ -228,6 +232,167 @@ def test_bma_forced_ties():
     assert torch.isfinite(_top_k_mask(row, 5)).sum() == 6
 
 
+# The select kernel never sorts a row.  For 0 < top_k <= KCAP it bounds the
+# row's threshold from below by L, the k-th largest chunk maximum of sel (the
+# k-th largest warp maximum where there are fewer than k chunks; none where
+# there are fewer than k warps).  It lists the elements above L, and for each
+# warp holding elements at L the best of them by sel + gumbel; the threshold
+# is the k-th largest entry above L where there are k, else L (by one
+# counting pass up to 256 keys, a four-pass radix select up to SLIST, over the
+# whole row beyond).  Above KCAP it radix-selects over the whole row.  The
+# mirror below follows csrc/bma_select.cu with its constants and element
+# layout, and is held against serve.sampling._top_k_mask.
+SLIST = 2048
+
+
+def _f2key(x):
+    """The kernel's order-preserving uint32 image of f32 values, as int64."""
+    u = x.float().contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    return torch.where(u >= 0x80000000, (~u) & 0xFFFFFFFF, u | 0x80000000)
+
+
+def _key2f(k: int) -> float:
+    u = (k & 0x7FFFFFFF) if k >= 0x80000000 else (~k) & 0xFFFFFFFF
+    return float(np.array([u], np.uint32).view(np.float32)[0])
+
+
+def _radix_kth(keys, k: int) -> int:
+    """block_kth_largest / the radix passes: four 8-bit digits, top first."""
+    prefix = mask = 0
+    for shift in (24, 16, 8, 0):
+        live = keys[(keys & mask) == prefix]
+        hist = torch.bincount((live >> shift) & 255, minlength=256)
+        suffix = hist.flip(0).cumsum(0).flip(0)  # keys at this digit or above
+        d = int(((suffix >= k) & (suffix - hist < k)).nonzero()[0])
+        k -= int(suffix[d] - hist[d])
+        prefix |= d << shift
+        mask |= 255 << shift
+    return prefix
+
+
+def _counting_kth(keys, k: int) -> int:
+    """block_kth_small: the key with fewer than k above and >= k at or above."""
+    gt = (keys[None, :] > keys[:, None]).sum(1)
+    ge = (keys[None, :] >= keys[:, None]).sum(1)
+    return int(keys[(gt < k) & (k <= ge)][0])
+
+
+def _kth(keys, k: int) -> int:
+    return _counting_kth(keys, k) if keys.numel() <= 256 else _radix_kth(keys, k)
+
+
+def _mirror_select(sel, gumbel, k):
+    """(threshold, token, path) of one row as the kernel computes them."""
+    V = sel.numel()
+    k_eff = min(k, V)
+    keys = _f2key(sel)
+    if k > kbma.KCAP:
+        th, path = _radix_kth(keys, k_eff), "radix"
+    else:
+        C = -(-V // kbma.CHUNK)
+        padded = torch.zeros(C * kbma.CHUNK, dtype=torch.int64)  # past V: key 0
+        padded[:V] = keys
+        off = torch.arange(kbma.CHUNK)
+        warp = (off % (kbma.CHUNK // 2)) // (kbma.CHUNK // (2 * kbma.WARPS))  # elem_off's layout
+        wmax = torch.stack([padded.view(C, kbma.CHUNK)[:, warp == w].max(1).values
+                            for w in range(kbma.WARPS)], 1)  # (C, WARPS)
+        if C >= k_eff:
+            bound, path = _kth(wmax.max(1).values, k_eff), "chunk maxima"
+        elif C * kbma.WARPS >= k_eff:
+            bound, path = _kth(wmax.reshape(-1), k_eff), "warp maxima"
+        else:
+            bound, path = 0, "no bound"
+        above = (keys > bound).nonzero()[:, 0]
+        at = torch.zeros(C * kbma.CHUNK, dtype=torch.bool)
+        at[:V] = keys == bound
+        score = torch.full((C * kbma.CHUNK,), float("-inf"))
+        score[:V] = sel + gumbel
+        ties = []  # per (chunk, warp) holding elements at the bound: its best
+        for c in range(C):
+            for w in range(kbma.WARPS):
+                idx = c * kbma.CHUNK + off[warp == w]  # ascending
+                if at[idx].any():
+                    sc_w = torch.where(at[idx], score[idx], float("-inf"))
+                    ties.append(int(idx[torch.argmax(sc_w)]))
+        listed = torch.cat([above, torch.tensor(ties, dtype=torch.int64)])
+        if listed.numel() > SLIST:
+            th, path = _radix_kth(keys, k_eff), path + ", whole row"
+        else:
+            th = _kth(keys[listed], k_eff) if above.numel() >= k_eff else bound
+            kept = listed[keys[listed] >= th]
+            val = (sel + gumbel)[kept]
+            best = kept[val == val.max()].min()  # the first maximum
+            return _key2f(th), int(best), path
+    kept = keys >= th
+    val = torch.where(kept, sel + gumbel, torch.tensor(float("-inf")))
+    return _key2f(th), int(torch.argmax(val)), path  # torch.argmax: the first maximum
+
+
+def _topk_row(seed, V, levels):
+    """A row of sel values; ``levels`` > 0 rounds them to that many steps per
+    unit, so exact duplicates sit at every threshold; -1 makes them all
+    equal."""
+    rng = np.random.default_rng(seed)
+    x = (3.0 * rng.standard_normal(V)).astype(np.float32)
+    if levels < 0:
+        x[:] = -1.5
+    elif levels:
+        x = (np.round(x * levels) / levels).astype(np.float32)
+    return torch.tensor(x) / 0.7, torch.tensor(rng.gumbel(size=V).astype(np.float32))
+
+
+def _check_mirror(sel, gumbel, k):
+    th, tok, path = _mirror_select(sel, gumbel, k)
+    masked = _top_k_mask(sel[None], k)[0]
+    want = torch.where(sel < th, float("-inf"), sel)
+    torch.testing.assert_close(want, masked, rtol=0, atol=0)
+    assert tok == int(torch.argmax(masked + gumbel)), path
+    return path
+
+
+# (V, levels, top_k): k = 1, at the candidate capacity, above it, and V, on
+# rows with wide ties at the threshold and a ragged last chunk; each path of
+# the bound (chunk maxima, warp maxima, none) and of the select
+TOPK_CASES = {
+    "k1_ragged": (3 * 2048 + 300, 0, 1, "chunk maxima"),
+    "k50_ties": (60 * 2048 + 77, 2, 50, "chunk maxima"),
+    "kcap_warp_bound": (20 * 2048 + 5, 4, kbma.KCAP, "warp maxima"),
+    "kcap_ties_no_bound": (5 * 2048 + 1000, 1, kbma.KCAP, "no bound, whole row"),
+    "flat": (60 * 2048 + 5, -1, 50, "chunk maxima"),
+    "kcap_small_row": (300, 3, kbma.KCAP, "no bound"),
+    "above_kcap": (3 * 2048 + 300, 2, kbma.KCAP + 1, "radix"),
+    "k_is_V": (2 * 2048 + 9, 0, 2 * 2048 + 9, "radix"),
+    "k_above_V": (100, 0, 120, "no bound"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(TOPK_CASES))
+def test_kernel_topk_scheme_matches_top_k_mask(case):
+    V, levels, k, path = TOPK_CASES[case]
+    sel, gumbel = _topk_row(sorted(TOPK_CASES).index(case), V, levels)
+    assert _check_mirror(sel, gumbel, k) == path
+
+
+@settings(max_examples=60, deadline=None, derandomize=True)
+@given(V=st.integers(1, 24 * 2048 + 100), levels=st.sampled_from([0, 1, 3, 50]),
+       kind=st.sampled_from(["1", "kcap", "kcap+1", "V", "any"]), k_any=st.integers(1, 400),
+       seed=st.integers(0, 2**16))
+def test_kernel_topk_scheme_property(V, levels, kind, k_any, seed):
+    k = {"1": 1, "kcap": kbma.KCAP, "kcap+1": kbma.KCAP + 1, "V": V, "any": k_any}[kind]
+    sel, gumbel = _topk_row(seed, V, levels)
+    _check_mirror(sel, gumbel, k)
+
+
+def test_kth_selects_agree():
+    """The counting pass and the radix select give the same key, duplicates
+    counted, at every k."""
+    keys = _f2key(torch.tensor(np.round(np.random.default_rng(3).standard_normal(200) * 2)
+                               .astype(np.float32)))
+    for k in range(1, 201):
+        assert _counting_kth(keys, k) == _radix_kth(keys, k) == int(keys.sort(descending=True)
+                                                                     .values[k - 1])
+
+
 @pytest.mark.parametrize("mode", ["probs", "logprobs"])
 @pytest.mark.parametrize("temperature,top_k", [(0.0, 0), (1.3, 0), (0.7, 5)])
 def test_fused_select_bit_equal_to_unfused(mode, temperature, top_k):
@@ -343,32 +508,70 @@ def test_bma_guards(guard):
         ops.fused_bma_select(**BMA_GUARDS[guard])
 
 
-# The card branch of the two attention wrappers, in a fresh interpreter (so no
-# binding module is imported yet), with the library, the device test and the
-# stream stubbed: each wrapper reaches its kernel's C entry once and counts it.
+# The card branch of each wrapper whose kernel has a ctypes binding, in a
+# fresh interpreter (so no binding module is imported yet), with the
+# library, the device test and the stream stubbed: the wrapper reaches its
+# kernel's C entry once and counts it.  The child prints what the entry was
+# given; the test holds the binding's argtypes against the C signature in
+# csrc/ and the bma_select scratch against scratch_words.
 _CARD_BRANCH = """
-import types, torch
+import ctypes, json, types, torch
 from repro_torch.kernels import _build, ops
 calls = []
-lib = types.SimpleNamespace(**{n: (lambda n: lambda *a: calls.append(n) or 0)(n)
-                               for n in ("flash_attention_fwd", "paged_attention_fwd")})
+def entry(name):
+    def fn(*args):
+        calls.append((name, args))
+        return 0
+    return fn
+lib = types.SimpleNamespace(**{n: entry(n) for n in (
+    "flash_attention_fwd", "paged_attention_fwd", "bma_select_fwd", "rglru_scan_fwd")})
 _build.library = lambda name: lib
 ops._on_card = lambda *t: True
 torch.cuda.current_stream = lambda device=None: types.SimpleNamespace(cuda_stream=0)
 x = torch.zeros((1, 2, 16, 64), dtype=torch.bfloat16)
 if WRAPPER == "flash_attention":
     ops.flash_attention(x, x[:, :1].contiguous(), x[:, :1].contiguous())
-else:
+elif WRAPPER == "paged_attention":
     pages = torch.zeros((3, 8, 2, 64), dtype=torch.bfloat16)
     ops.paged_attention(x[:, :, :2].contiguous(), pages, pages,
                         torch.ones((1, 2), dtype=torch.int32), torch.ones(1, dtype=torch.int32))
-assert calls == [WRAPPER + "_fwd"], calls
-assert ops.launches[WRAPPER] == 1, ops.launches
+elif WRAPPER == "fused_bma_select":
+    ops.fused_bma_select(torch.zeros((4, 3, 5000)), torch.Generator().manual_seed(0),
+                         mode="logprobs", temperature=0.7, top_k=50)
+else:  # an f16 a with an f32 x: the kernel reads both as f32
+    ops.rglru_scan(torch.zeros((2, 8, 32), dtype=torch.float16), torch.zeros((2, 8, 32)))
+(name, args), = calls
+fn = getattr(lib, name)
+kinds = ["ptr" if t is ctypes.c_void_p else "float" if t is ctypes.c_float
+         else "int%d" % (8 * ctypes.sizeof(t)) for t in fn.argtypes]
+counter = "bma_select" if WRAPPER == "fused_bma_select" else WRAPPER
+print(json.dumps(dict(name=name, kinds=kinds, launches=ops.launches[counter],
+                      args=[a if isinstance(a, (int, float)) or a is None else repr(a) for a in args])))
 """
 
+_SOURCES = {"flash_attention": "flash_attention", "paged_attention": "paged_attention",
+            "fused_bma_select": "bma_select", "rglru_scan": "rglru"}
 
-@pytest.mark.parametrize("wrapper", ["flash_attention", "paged_attention"])
+
+def _c_signature(source: str, entry: str):
+    """The parameter kinds of ``extern "C" int entry(...)`` in csrc/<source>.cu."""
+    import pathlib
+    import re
+
+    text = (pathlib.Path(kbma.__file__).parent / "csrc" / f"{source}.cu").read_text()
+    params = re.search(r'extern "C" int ' + entry + r"\(([^)]*)\)", text).group(1)
+    kinds = []
+    for p in params.split(","):
+        decl = " ".join(p.split()[:-1])
+        kinds.append("ptr" if "*" in p else "float" if decl == "float"
+                     else "int64" if decl == "long long" else "int32")
+    return kinds
+
+
+@pytest.mark.parametrize("wrapper", ["flash_attention", "paged_attention", "fused_bma_select",
+                                     "rglru_scan"])
 def test_card_branch_reaches_the_c_entry(wrapper):
+    import json
     import subprocess
     import sys
 
@@ -376,6 +579,25 @@ def test_card_branch_reaches_the_c_entry(wrapper):
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          timeout=300, env={**os.environ, "PYTHONPATH": os.pathsep.join(sys.path)})
     assert out.returncode == 0, out.stderr
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got["launches"] == 1
+    assert got["kinds"] == _c_signature(_SOURCES[wrapper], got["name"])
+    assert len(got["args"]) == len(got["kinds"])
+    if wrapper == "fused_bma_select":  # logits (4, 3, 5000), logprobs, T 0.7, top-k 50
+        assert got["args"][5] == kbma.scratch_words(4, 3, 5000)
+        assert got["args"][6:10] == [4, 3, 5000, 1] and got["args"][11] == 50
+    if wrapper == "rglru_scan":  # (B, S, R, is_bf16)
+        assert got["args"][4:8] == [2, 8, 32, 0]
+
+
+def test_bma_scratch_words():
+    """Per (slot, chunk): K member pairs, the argmax pair, the warp maxima and
+    a radix histogram; per slot: the candidate list and six words."""
+    C = -(-151936 // kbma.CHUNK)
+    assert C == 75
+    per_chunk = 2 * 4 + 2 + kbma.WARPS + kbma.BINS
+    assert kbma.scratch_words(4, 8, 151936) == 8 * C * per_chunk + 8 * (3 * kbma.LIST + 7)
+    assert kbma.scratch_words(1, 1, 1) == 2 + 2 + kbma.WARPS + kbma.BINS + 3 * kbma.LIST + 7
 
 
 # ---------------------------------------------------------------------------
@@ -415,11 +637,19 @@ def test_cuda_kernels_match_plain_versions(card):
                                                                  M=4, ctx=[0, 17, 40, 63])]
     torch.testing.assert_close(ops.paged_attention(*args, window=20),
                                ref.paged_attention(*args, window=20), atol=1e-5, rtol=0)
-    logits = torch.tensor(_np(5, 3, 4, 5000), device=card)
-    gum = torch.tensor(_np(6, 4, 5000), device=card)
-    from repro_torch.kernels import bma_select as kbma
-
-    tok, logp = kbma.launch(logits, gum, mode="probs", temperature=0.7, top_k=10, chunk=512)
-    rtok, rlogp = ref.bma_select(logits, gum, mode="probs", temperature=0.7, top_k=10)
-    torch.testing.assert_close(logp, rlogp, atol=1e-5, rtol=0)
-    torch.testing.assert_close(tok, rtok, atol=0, rtol=0)
+    # the select kernel: K = 3 (any member count) and 4 (the main path's), V
+    # with a ragged last chunk, V % 4 != 0 (no 16-byte copies), ties at the
+    # top-k threshold, top_k at and above the candidate capacity, and V
+    ties = torch.tensor(np.round(_np(7, 4, 4, 6000, scale=2.0)), device=card)
+    cases = [(torch.tensor(_np(5, 3, 4, 5000), device=card), 10),
+             (torch.tensor(_np(8, 4, 4, 4099, scale=3.0), device=card), 50),
+             (ties, 50), (ties, kbma.KCAP), (ties, kbma.KCAP + 1), (ties, 6000)]
+    for logits, top_k in cases:
+        V = logits.shape[-1]
+        gum = torch.tensor(_np(6, 4, V), device=card)
+        for mode in ("probs", "logprobs"):
+            for T, k, g in ((0.0, 0, None), (0.7, 0, gum), (0.7, top_k, gum)):
+                tok, logp = kbma.launch(logits, g, mode=mode, temperature=T, top_k=k)
+                rtok, rlogp = ref.bma_select(logits, g, mode=mode, temperature=T, top_k=k)
+                torch.testing.assert_close(logp, rlogp, atol=1e-5, rtol=0)
+                torch.testing.assert_close(tok, rtok, atol=0, rtol=0)

@@ -112,6 +112,22 @@ def test_bf16_inputs_scan_in_f32():
     np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
 
 
+@pytest.mark.parametrize("dtypes", [("float16", "float16"), ("float16", "float32"),
+                                    ("float32", "bfloat16"), ("bfloat16", "float16")])
+def test_narrow_and_mixed_dtypes_match_reference(dtypes):
+    """Any float a and x, as the reference takes them: both are widened to
+    f32 (exactly, from f16 and bf16) before the scan."""
+    a, x, h0 = _inputs(7, 2, 40, 24, True)
+    at, xt = (torch.tensor(v).to(getattr(torch, d)) for v, d in zip((a, x), dtypes))
+    got = ops.rglru_scan(at, xt, torch.tensor(h0))
+    assert got.dtype == torch.float32 and got.shape == (2, 40, 24)
+    torch.testing.assert_close(got, ref.rglru_scan(at.float(), xt.float(), torch.tensor(h0)),
+                               rtol=0, atol=0)
+    want = np.asarray(jref.rglru_scan(jnp.asarray(at.float().numpy()),
+                                      jnp.asarray(xt.float().numpy()), jnp.asarray(h0)))
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+
+
 def test_cpu_path_is_differentiable():
     """On the CPU the plain version carries autograd (the reference
     trains through its scan); the card's kernel raises instead."""
@@ -130,9 +146,10 @@ RGLRU_GUARDS = {
     "h0_on_other_device": lambda: (*_ax(), torch.zeros(1, 3, device="meta")),
     "rank": lambda: (torch.zeros(4, 3), torch.zeros(4, 3), None),
     "shape_mismatch": lambda: (torch.zeros(1, 4, 3), torch.zeros(1, 5, 3), None),
-    "dtype_mismatch": lambda: (torch.zeros(1, 4, 3), torch.zeros(1, 4, 3, dtype=torch.bfloat16),
+    # any float pair is taken (cast to f32); an integer input is not
+    "dtype_mismatch": lambda: (torch.zeros(1, 4, 3), torch.zeros(1, 4, 3, dtype=torch.int32),
                                None),
-    "unsupported_dtype": lambda: (*_ax(dtype=torch.float16), None),
+    "unsupported_dtype": lambda: (*_ax(dtype=torch.int64), None),
     "h0_shape": lambda: (*_ax(), torch.zeros(1, 4)),
     "h0_integer": lambda: (*_ax(), torch.zeros(1, 3, dtype=torch.int32)),
     "non_contiguous": lambda: (torch.zeros(1, 3, 4).transpose(1, 2), torch.zeros(1, 4, 3), None),
@@ -166,6 +183,15 @@ def test_cuda_kernel_matches_plain_version_bitwise(card):
         got = ops.rglru_scan(a, x, h0)
         assert launches["rglru_scan"] == before + 1
         assert torch.equal(got, ref.rglru_scan(a, x, h0))
+    ab, xb = a.to(torch.bfloat16), x.to(torch.bfloat16)
+    assert torch.equal(ops.rglru_scan(ab, xb, h0), ref.rglru_scan(ab, xb, h0))
+    # f16, and a mixed pair, cast to f32 before the kernel
+    for da, dx in ((torch.float16, torch.float16), (torch.float32, torch.bfloat16)):
+        assert torch.equal(ops.rglru_scan(a.to(da), x.to(dx), h0),
+                           ref.rglru_scan(a.to(da), x.to(dx), h0))
+    # R = 77 in bf16 is not made of whole 16-byte pieces: tiles staged by plain loads
+    a, x, h0 = (None if v is None else torch.tensor(v, device=card)
+                for v in _inputs(8, 2, 300, 77, True))
     ab, xb = a.to(torch.bfloat16), x.to(torch.bfloat16)
     assert torch.equal(ops.rglru_scan(ab, xb, h0), ref.rglru_scan(ab, xb, h0))
     with pytest.raises(NotImplementedError):
