@@ -55,11 +55,23 @@ It imports torch, numpy and repro_torch only, and:
    checks the launch counts of the scan, flash and bma_select kernels,
    profiles a short run, and holds the SMOKE hybrid engine on the card
    against the CPU;
-9. prints one JSON line of the six kernels, the card line, and the result
+9. serving meets sampling: ``launch.serve.main`` at full-width qwen3-0.6b
+   with K = 4 and overlapped live refresh, then its ensemble path
+   (``[serve-launch]``); the ``[slice]`` engine and trace frozen, with the
+   sync ``ChainRefresher`` and with the overlapped ``RefreshScheduler`` on
+   a side CUDA stream (also once with the engine on a high-priority
+   stream), holding each overlapped run's final chain stack against the
+   sync one's bit for bit (``[refresh]``), and fed by fused EC-SGHMC
+   (``[refresh-ec]``); checkpointed training preempted and
+   resumed bit for bit, a timed save/restore, a truncated checkpoint and
+   an elastic restore (``[ckpt]``); ``launch.train.main`` at full width
+   (``[launch-train]``);
+10. prints one JSON line of the six kernels, the card line, and the result
    line.
 
 TF32 is off for matmuls and cuDNN (``allow_tf32 = False``), so f32
-products are full f32.  Any failure raises and exits non-zero; without
+products are full f32.  The caching allocator runs with expandable
+segments (``PYTORCH_CUDA_ALLOC_CONF``, unless the caller set it).  Any failure raises and exits non-zero; without
 CUDA it exits 2 and prints no result.  Long output (nvcc's build log, the
 profile table, the full JSON result) goes to ``build/chip_smoke/``.
 """
@@ -68,6 +80,7 @@ from __future__ import annotations
 import gc
 import json
 import math
+import os
 import pathlib
 import subprocess
 import sys
@@ -1318,7 +1331,471 @@ def phase_train(torch, card, adaptive=False):
                         nll=[m["nll_per_token"] for m in hist])
 
 
+# ---------------------------------------------------------------------------
+# serving meets sampling: live refresh, the launchers, checkpointed training
+# ---------------------------------------------------------------------------
+
+QWEN_V = 151936
+REFRESH_EVERY = 8  # decode ticks per sampler chunk of 16 steps (launch/serve.py's chunk)
+REFRESH_TOTAL_STEPS = 128  # 8 proposals: both refreshers exhaust within or just after a run
+REFRESH_PAIRS = 2  # back-to-back (frozen, overlapped) pairs, as DESIGN.md section 9 pairs them
+EC_REFRESH_STEP = 1e-3  # EC-SGHMC over the bootstrap prior: a chunk spreads the chains past the gate
+CKPT_LAYERS = 4  # [ckpt]: qwen3-0.6b widths, depth cut from 28 so one checkpoint is ~10 GB
+# a checkpoint every 4 steps, not 2: two ~10 GB saves instead of four, each
+# bound by the disk
+CKPT_STEPS, CKPT_EVERY, CKPT_PREEMPT, CKPT_KEEP = 8, 4, 4, 2
+LAUNCH_TRAIN_STEPS = 10  # launch/train.py logs every 10 steps (LoopConfig's default)
+
+
+def reset_peak(torch):
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def gib(x) -> str:
+    return f"{x / 2**30:.2f} GiB"
+
+
+def check_served(rep, n_req, max_new, V, label):
+    """Every request retired with max_new tokens in the vocabulary."""
+    if len(rep.results) != n_req:
+        raise AssertionError(f"{label}: {len(rep.results)} of {n_req} requests retired")
+    for r in rep.results:
+        t = r.tokens
+        if r.truncated or t.size != max_new or t.min() < 0 or t.max() >= V:
+            raise AssertionError(f"{label}: request {r.rid} bad: {t.size} tokens, "
+                                 f"truncated={r.truncated}, range [{t.min()}, {t.max()}]")
+
+
+def check_health(rep, label):
+    """The last gated candidate's spread report: finite norms mean every
+    member element was finite."""
+    h = rep.registry["last_health"]
+    if h is None or not (math.isfinite(h["mean_param_norm"]) and math.isfinite(h["rel_spread"])):
+        raise AssertionError(f"{label}: the members are not finite: {h}")
+    return h
+
+
+def phase_serve_launch(torch, card):
+    """``repro_torch.launch.serve.main`` at full-width qwen3-0.6b: the engine
+    with K = 4 and overlapped live refresh every 8 ticks, then the
+    non-engine ``--ensemble 4`` path."""
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.launch import serve as serve_launch
+
+    common = ["--arch", "qwen3-0.6b", "--ensemble", "4", "--prompt-len", "128", "--gen", "32"]
+    engine_args = common + ["--engine", "--slots", "8", "--requests", "16",
+                            "--refresh-every", str(REFRESH_EVERY)]
+    reset_peak(torch)
+    reset_launches()
+    t0 = time.perf_counter()
+    rep = serve_launch.main(engine_args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, peak = dict(launches), torch.cuda.max_memory_allocated()
+    check_served(rep, 16, 32, QWEN_V, "serve-launch")
+    rf = rep.refresher
+    h = check_health(rep, "serve-launch")
+    pct = rep.latency_percentiles()
+    log(f"[serve-launch] launch.serve.main({' '.join(engine_args)}): {rep.total_tokens} tokens, "
+        f"{rep.decode_steps} ticks, {rep.tokens_per_s:.1f} tok/s, latency p50 "
+        f"{pct['latency_p50_s']:.3f} s p99 {pct['latency_p99_s']:.3f} s, first token p99 "
+        f"{pct['first_token_p99_s']:.3f} s; registry version {rep.registry['version']}, "
+        f"promotions {rf['promotions']}, rejections {rf['rejections']}, {rf['steps_done']} "
+        f"sampler steps in {rf['micro_chunks']} micro-chunks, pump {rf['pump_wall_s']:.3f} s, "
+        f"stall {rf['stall_wall_s']:.3f} s; last rel_spread {h['rel_spread']:.3e}; launches "
+        f"{counts}; peak {gib(peak)}; {wall:.1f} s with the bootstrap [{card}]")
+    if not rep.registry["version"] == rf["promotions"] >= 1:
+        raise AssertionError(f"serve-launch: registry version {rep.registry['version']} vs "
+                             f"{rf['promotions']} promotions")
+    if min(counts["flash_attention"], counts["bma_select"]) <= 0:
+        raise AssertionError(f"serve-launch missed a kernel of its path: {counts}")
+    engine = dict(tokens_per_s=rep.tokens_per_s, promotions=rf["promotions"], peak=peak,
+                  launches=counts, refresher=rf, **pct)
+    del rep
+    reset_peak(torch)
+    reset_launches()
+    t0 = time.perf_counter()
+    toks = serve_launch.main(common)
+    wall = time.perf_counter() - t0
+    counts2, peak2 = dict(launches), torch.cuda.max_memory_allocated()
+    log(f"[serve-launch] launch.serve.main({' '.join(common)}): tokens {tuple(toks.shape)} in "
+        f"{wall:.1f} s with the bootstrap; launches {counts2}; peak {gib(peak2)} [{card}]")
+    if tuple(toks.shape) != (4, 32) or int(toks.min()) < 0 or int(toks.max()) >= QWEN_V:
+        raise AssertionError(f"serve-launch ensemble path: tokens {toks}")
+    if counts2["flash_attention"] <= 0:
+        raise AssertionError(f"serve-launch ensemble path missed flash_attention: {counts2}")
+    reset_peak(torch)
+    return dict(engine=engine, ensemble=dict(wall=wall, launches=counts2, peak=peak2))
+
+
+def refresh_setup(torch, card):
+    """What ``[refresh]`` and ``[refresh-ec]`` share: the qwen3-0.6b paged
+    engine and the ``[slice]`` trace, one bootstrap ensemble (kept on the
+    host, so no run holds a spare 9.6 GB stack on the card) and ``serve``,
+    which serves the trace from that ensemble, frozen or with a refresher
+    as ``launch/serve.py::_live_refresher`` builds it (with a finite
+    ``total_steps``), checks it, and logs and returns its row."""
+    from repro_torch import configs, core
+    from repro_torch.core import rng as rnglib
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.launch import serve as serve_launch
+    from repro_torch.models import get_model, tree_leaves, tree_map
+    from repro_torch.serve.engine import (ChainRefresher, RefreshScheduler, ServeEngine,
+                                          SnapshotRegistry, synthetic_trace)
+
+    cfg = configs.get_config("qwen3-0.6b").replace(use_flash_kernel=True)
+    model = get_model(cfg)
+    specs = model.param_specs(cfg)
+    key = rnglib.key(0)
+    reset_peak(torch)
+    t0 = time.perf_counter()
+    members, res = serve_launch._bootstrap_ensemble(specs, key, 4, "cuda")
+    torch.cuda.synchronize()
+    boot_s, boot_peak = time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+    log(f"[refresh] bootstrap: K=4 members from one SGLD chain ({res.steps} steps, thin 16) in "
+        f"{boot_s:.2f} s, {res.steps_per_s:.1f} steps/s, peak {gib(boot_peak)} [{card}]")
+    host_members = tree_map(lambda a: a.cpu(), members)
+    del members, res
+    trace = synthetic_trace(16, vocab_size=QWEN_V, prompt_lens=(64, 128), max_new=32, seed=0)
+    kw = dict(num_slots=8, max_seq=128 + 32, paged=True, device="cuda")
+
+    def serve(label, mode=None, sampler=None, tag="refresh", high_priority=False):
+        reg = SnapshotRegistry(tree_map(lambda a: a.to("cuda"), host_members))
+        ref = None
+        if mode is not None:
+            center = serve_launch._init(specs, key, "cuda")
+            start = tree_map(lambda x: x[None].expand((4,) + tuple(x.shape)).contiguous(), center)
+            cls = RefreshScheduler if mode == "overlapped" else ChainRefresher
+            ref = cls(reg, sampler or core.sgld(step_size=serve_launch._EPS),
+                      serve_launch._prior_grad(center), start, key=rnglib.fold_in(key, 2),
+                      chunk_steps=16, total_steps=REFRESH_TOTAL_STEPS)
+            del center, start
+        eng = ServeEngine(cfg, model, reg, refresher=ref,
+                          refresh_every=REFRESH_EVERY if ref is not None else 0, **kw)
+        reset_peak(torch)
+        reset_launches()
+        if high_priority:
+            # the engine's launches on a stream of the card's highest
+            # priority, the side stream at the default (lowest) one
+            hp = torch.cuda.Stream(priority=torch.cuda.Stream.priority_range()[1])
+            hp.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(hp):
+                rep = eng.run(trace)
+            torch.cuda.current_stream().wait_stream(hp)
+        else:
+            rep = eng.run(trace)
+        torch.cuda.synchronize()
+        counts, peak = dict(launches), torch.cuda.max_memory_allocated()
+        check_served(rep, len(trace), 32, QWEN_V, f"{tag} {label}")
+        if mode is not None:
+            check_health(rep, f"{tag} {label}")
+        if min(counts[n] for n in SERVING_KERNELS) <= 0:
+            raise AssertionError(f"{tag} {label} missed a serving kernel: {counts}")
+        pct = rep.latency_percentiles()
+        rf = rep.refresher or {}
+        ticks = max(rep.decode_steps, 1)
+        row = dict(label=label, tokens_per_s=rep.tokens_per_s, wall=rep.wall_s,
+                   ticks=rep.decode_steps, peak=peak, launches=counts,
+                   promotions=rep.registry["version"], rejections=rep.registry["rejected"],
+                   micro_chunks=rf.get("micro_chunks", 0), steps_done=rf.get("steps_done", 0),
+                   pump_wall_s=rf.get("pump_wall_s", rf.get("refresh_wall_s", 0.0)),
+                   stall_wall_s=rf.get("stall_wall_s", 0.0),
+                   flips_deferred=rf.get("flips_deferred", 0),
+                   backpressure_ticks=rf.get("backpressure_ticks", 0),
+                   decode_steps_stalled=rf.get("decode_steps_stalled", 0), **pct)
+        log(f"[{tag}] {label}: {rep.total_tokens} tokens, {rep.decode_steps} ticks, "
+            f"{rep.tokens_per_s:.2f} tok/s, latency p50 {pct['latency_p50_s']:.3f} s p99 "
+            f"{pct['latency_p99_s']:.3f} s, first token p50 {pct['first_token_p50_s']:.3f} s "
+            f"p99 {pct['first_token_p99_s']:.3f} s; promotions {row['promotions']}, rejections "
+            f"{row['rejections']}, {row['steps_done']} sampler steps in {row['micro_chunks']} "
+            f"micro-chunks; pump {row['pump_wall_s']:.3f} s = "
+            f"{1e3 * row['pump_wall_s'] / ticks:.1f} ms per tick against "
+            f"{1e3 * rep.wall_s / ticks:.1f} ms of wall per tick; stall "
+            f"{row['stall_wall_s']:.3f} s ({row['decode_steps_stalled']} ticks), deferred flips "
+            f"{row['flips_deferred']}, backpressure ticks {row['backpressure_ticks']}; peak "
+            f"{gib(peak)}; launches {counts} [{card}]")
+        return reg, ref, row
+
+    ServeEngine(cfg, model, SnapshotRegistry(tree_map(lambda a: a.to("cuda"), host_members)),
+                **kw).run(trace[:2])  # warm-up: allocator pools
+    return dict(cfg=cfg, serve=serve, n_leaves=len(tree_leaves(host_members)),
+                bootstrap_s=boot_s, bootstrap_peak=boot_peak)
+
+
+def phase_refresh(torch, card, setup):
+    """The ``[slice]`` paged engine and trace with the sync
+    ``ChainRefresher``, then ``REFRESH_PAIRS`` back-to-back (frozen,
+    overlapped ``RefreshScheduler``) pairs, over the launcher's SGLD on the
+    bootstrap prior, then one overlapped run with the engine on a stream of
+    the card's highest priority (an experiment, not a path of the port).
+    Each overlapped run's final chain stack must equal the sync one's bit
+    for bit after the same total steps."""
+    from repro_torch.models import tree_leaves, tree_map
+
+    serve = setup["serve"]
+
+    def check_final(reg, ref, label):
+        version, final = final_stack(reg, ref, label)
+        same = version == sync_version and all(
+            torch.equal(a, b) for a, b in zip(tree_leaves(final), tree_leaves(sync_final)))
+        log(f"[refresh] {label} vs sync after {REFRESH_TOTAL_STEPS} steps: promotions "
+            f"{version} vs {sync_version}, final chain stack bitwise equal: {same}")
+        if not same:
+            raise AssertionError(f"{label}: the overlapped refresh diverged from the sync one")
+        return same
+
+    def final_stack(reg, ref, label):
+        """Run the refresher to total_steps (the sync surface, after the
+        serving run) and return its last promoted stack on the host."""
+        while not ref.exhausted:
+            ref.refresh()
+        if reg.staged is not None or ref.steps_done != REFRESH_TOTAL_STEPS:
+            raise AssertionError(f"{label}: refresher stopped at {ref.steps_done} steps")
+        torch.cuda.synchronize()
+        return reg.version, tree_map(lambda a: a.cpu(), reg.members)
+
+    reg, ref, sync_row = serve("sync ChainRefresher", "sync")
+    sync_version, sync_final = final_stack(reg, ref, "sync")
+    del reg, ref
+    rows, matches = [], []
+    for i in range(REFRESH_PAIRS):
+        _, _, frozen = serve(f"frozen #{i + 1}")
+        reg, ref, over = serve(f"overlapped RefreshScheduler #{i + 1}", "overlapped")
+        matches.append(check_final(reg, ref, f"overlapped #{i + 1}"))
+        rows.append((frozen, over))
+        del reg, ref
+    p99 = [o["latency_p99_s"] / f["latency_p99_s"] for f, o in rows]
+    over_tps = float(np.median([o["tokens_per_s"] for _, o in rows]))
+    p99_ratio = float(np.median(p99))
+    tps_ratio = over_tps / sync_row["tokens_per_s"]
+    log(f"[refresh] overlapped/frozen latency p99 ratio per pair {['%.3f' % r for r in p99]}, "
+        f"median {p99_ratio:.3f} (DESIGN.md section 9 target <= 1.2); overlapped/sync tok/s "
+        f"{over_tps:.2f}/{sync_row['tokens_per_s']:.2f} = {tps_ratio:.2f}x (target >= 2x); "
+        f"recorded, not asserted [{card}]")
+    # not a path of the port: does the decode lose to the sampler's kernels
+    # for the card's SMs? The same overlapped run, serving at high priority
+    reg, ref, prio = serve("overlapped, serving stream at high priority", "overlapped",
+                           high_priority=True)
+    matches.append(check_final(reg, ref, "overlapped at high serving priority"))
+    del reg, ref
+    frozen_tps = float(np.median([f["tokens_per_s"] for f, _ in rows]))
+    frozen_p99 = float(np.median([f["latency_p99_s"] for f, _ in rows]))
+    log(f"[refresh] serving at high priority: {prio['tokens_per_s']:.2f} tok/s = "
+        f"{prio['tokens_per_s'] / frozen_tps:.2f}x the frozen median and "
+        f"{prio['tokens_per_s'] / sync_row['tokens_per_s']:.2f}x sync; p99 "
+        f"{prio['latency_p99_s'] / frozen_p99:.3f}x the frozen median (default priority: "
+        f"{over_tps / frozen_tps:.2f}x, {tps_ratio:.2f}x) [{card}]")
+    reset_peak(torch)
+    return dict(sync=sync_row, pairs=rows, prio=prio, p99_ratio=p99_ratio, tps_ratio=tps_ratio,
+                over_tps=over_tps, bitwise=matches, bootstrap_s=setup["bootstrap_s"],
+                bootstrap_peak=setup["bootstrap_peak"])
+
+
+def phase_refresh_ec(torch, card, setup, sgld_tps):
+    """One overlapped run of the ``[refresh]`` engine and trace fed by fused
+    EC-SGHMC (Philox, K = 4, sync every 4) over the same prior: at least
+    one promotion and 13 ``fused_ec_update`` launches per sampler step."""
+    from repro_torch import core
+
+    samp = core.ec_sghmc(step_size=EC_REFRESH_STEP, alpha=1.0, friction=1.0,
+                         center_friction=1.0, sync_every=4, fused=True,
+                         state_dtype=setup["cfg"].param_dtype)
+    reg, ref, ec = setup["serve"]("overlapped RefreshScheduler, fused EC-SGHMC (Philox, K=4, "
+                                  f"s=4, eps {EC_REFRESH_STEP:g})", "overlapped", samp,
+                                  tag="refresh-ec")
+    n_leaves = setup["n_leaves"]
+    want = n_leaves * ec["steps_done"]
+    log(f"[refresh-ec] fused_ec_update launches {ec['launches']['fused_ec_update']} for "
+        f"{ec['steps_done']} sampler steps (expected {n_leaves} per step = {want}); serving "
+        f"{ec['tokens_per_s']:.2f} tok/s against the SGLD overlapped median {sgld_tps:.2f} in "
+        f"this call [{card}]")
+    if ec["promotions"] < 1 or ec["launches"]["fused_ec_update"] != want or want <= 0:
+        raise AssertionError(f"refresh-ec: {ec['promotions']} promotions, "
+                             f"{ec['launches']['fused_ec_update']} fused launches, expected {want}")
+    del reg, ref
+    reset_peak(torch)
+    return ec
+
+
+def phase_ckpt(torch, card):
+    """``train.loop.run`` with ``ckpt_dir``: fused EC-SGHMC (Philox) over the
+    launcher's prior gradient at qwen3-0.6b's widths, depth cut to
+    ``CKPT_LAYERS``; 8 steps preempted at 4 and resumed against an
+    uninterrupted run, the loop's last checkpoint restored against the
+    resumed state (a timed save/restore round trip), a truncated newest
+    checkpoint, and an elastic restore to K = 6."""
+    import shutil
+
+    from repro_torch import configs, core
+    from repro_torch.core import rng as rnglib
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.launch import serve as serve_launch
+    from repro_torch.models import get_model, tree_leaves, tree_map
+    from repro_torch.train import LoopConfig, Preempted, loop
+    from repro_torch.train import checkpoint as ck
+
+    cfg = configs.get_config("qwen3-0.6b").replace(num_layers=CKPT_LAYERS)
+    model = get_model(cfg)
+    K = 4
+    samp = core.ec_sghmc(step_size=EC_REFRESH_STEP, alpha=1.0, friction=1.0, center_friction=1.0,
+                         sync_every=4, fused=True, state_dtype=cfg.param_dtype)
+    center = serve_launch._init(model.param_specs(cfg), rnglib.key(600), "cuda")
+    grad = serve_launch._prior_grad(center)
+
+    def step_fn(params, state, batch, rng_key):
+        g = grad(params)
+        upd, state = samp.update(g, state, params, rng_key)
+        del g
+        return core.apply_updates(params, upd), state, {}
+
+    def fresh():
+        params = stacked_members(torch, cfg, model, K, "cuda", seed0=500)
+        return params, samp.init(params)
+
+    def run(ckpt_dir=None, preempt_at=None):
+        return loop.run(step_fn, *fresh(), lambda t: None,
+                        LoopConfig(num_steps=CKPT_STEPS, ckpt_dir=ckpt_dir, ckpt_every=CKPT_EVERY,
+                                   keep_ckpts=CKPT_KEEP, log_every=0, preempt_at=preempt_at,
+                                   seed=3), num_chains=K, alpha=1.0)
+
+    def leaves(params, state):
+        return tree_leaves(params) + [x for f in state[:-1] for x in tree_leaves(f)]
+
+    def same(a, b):
+        return a[1].step == b[1].step and all(
+            torch.equal(x, y) for x, y in zip(leaves(*a), leaves(*b)))
+
+    root = OUT / "ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    reset_peak(torch)
+    reset_launches()
+    straight = run()[:2]
+    n_leaves = len(tree_leaves(straight[0]))
+    nbytes = sum(x.numel() * x.element_size() for x in leaves(*straight))
+    free = shutil.disk_usage(root).free
+    need = (CKPT_KEEP + 1) * nbytes
+    log(f"[ckpt] qwen3-0.6b widths, depth cut to {CKPT_LAYERS} of 28 layers, K={K}, fused "
+        f"EC-SGHMC over the bootstrap prior: one checkpoint {nbytes / 1e9:.2f} GB, disk free "
+        f"{free / 1e9:.1f} GB (need {need / 1e9:.1f}) under {root}")
+    if free < need:
+        raise AssertionError(f"[ckpt] no room for the checkpoints: {free / 1e9:.1f} GB free, "
+                             f"{need / 1e9:.1f} GB needed")
+    saves = []
+    loop_save = ck.save
+
+    def timed_save(*args, **kw):  # the loop's own saves, timed
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = loop_save(*args, **kw)
+        saves.append(time.perf_counter() - t0)
+        return out
+
+    cut_dir = root / "loop"
+    ck.save = timed_save
+    try:
+        try:
+            run(str(cut_dir), preempt_at=CKPT_PREEMPT)
+            raise AssertionError("[ckpt] the run was not preempted")
+        except Preempted:
+            pass
+        kept = sorted(p.name for p in cut_dir.iterdir())
+        t0 = time.perf_counter()
+        resumed = run(str(cut_dir))[:2]
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t0
+    finally:
+        ck.save = loop_save
+    counts, peak = dict(launches), torch.cuda.max_memory_allocated()
+    bitwise = same(resumed, straight)
+    want = n_leaves * (CKPT_STEPS + CKPT_STEPS)
+    log(f"[ckpt] 8 steps, ckpt_every {CKPT_EVERY}, preempted at {CKPT_PREEMPT} (kept {kept}), "
+        f"resumed in {resume_s:.1f} s (a restore, 4 steps, a save): final params and state "
+        f"bitwise equal to the uninterrupted run: {bitwise}; fused_ec_update launches "
+        f"{counts['fused_ec_update']} (expected {want}); peak {gib(peak)} [{card}]")
+    if not bitwise or counts["fused_ec_update"] != want:
+        raise AssertionError("[ckpt] the resumed run differs from the uninterrupted one")
+    del straight
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step, p, s, _ = ck.restore(cut_dir, *resumed)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    roundtrip = step == CKPT_STEPS and same((p, s), resumed) and leaves(p, s)[0].is_cuda
+    save_s = float(np.median(saves))
+    log(f"[ckpt] the loop's saves {['%.2f' % x for x in saves]} s (median "
+        f"{nbytes / 1e9 / save_s:.2f} GB/s), restore of step {CKPT_STEPS} {restore_s:.2f} s "
+        f"({nbytes / 1e9 / restore_s:.2f} GB/s) onto the card, {nbytes / 1e9:.2f} GB each; "
+        f"bitwise round trip: {roundtrip} [{card}]")
+    if not roundtrip:
+        raise AssertionError("[ckpt] save -> restore is not a bitwise round trip")
+    del p, s
+
+    newest = sorted(cut_dir.glob("step_*"))[-1]
+    with open(newest / "arrays.npz", "r+b") as f:
+        f.truncate(f.seek(0, 2) // 2)
+    got = ck.restore(cut_dir, *resumed)
+    if got is None or got[0] != CKPT_PREEMPT:
+        raise AssertionError(f"[ckpt] truncated {newest.name}: restore gave "
+                             f"{None if got is None else got[0]}")
+    fallback_center = got[2].center
+    del got
+    p6 = tree_map(lambda x: torch.empty((6,) + tuple(x.shape[1:]), dtype=x.dtype, device="cuda"),
+                  resumed[0])
+    s6 = samp.init(p6)
+    del resumed
+    step, p6, s6, extra = ck.restore_elastic(cut_dir, p6, s6, num_chains=6, alpha=1.0, seed=3)
+    center_kept = all(torch.equal(a, b) for a, b in zip(tree_leaves(s6.center),
+                                                        tree_leaves(fallback_center)))
+    k6 = {int(x.shape[0]) for x in tree_leaves(p6)}
+    log(f"[ckpt] truncated {newest.name}: restore fell back to step {CKPT_PREEMPT}; "
+        f"restore_elastic to K=6 at step {step}: chain counts {k6}, center unchanged: "
+        f"{center_kept}, {extra}")
+    if k6 != {6} or step != CKPT_PREEMPT or not center_kept or not extra.get("elastic_resample"):
+        raise AssertionError("[ckpt] elastic restore to K=6 failed")
+    del p6, s6, fallback_center, center
+    shutil.rmtree(root)
+    reset_peak(torch)
+    return dict(bytes=nbytes, save_s=saves, restore_s=restore_s, resume_s=resume_s,
+                bitwise=bitwise, launches=counts, peak=peak)
+
+
+def phase_launch_train(torch, card):
+    """``repro_torch.launch.train.main`` at full-width qwen3-0.6b, 4 chains,
+    no checkpoint: the nll per token of every logged step is finite.  It
+    runs ``LAUNCH_TRAIN_STEPS`` = 10 steps because the launcher logs every
+    10 (the loop's default cadence, as in the reference's launcher)."""
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.launch import train as train_launch
+
+    args = ["--arch", "qwen3-0.6b", "--steps", str(LAUNCH_TRAIN_STEPS), "--chains", "4"]
+    reset_peak(torch)
+    reset_launches()
+    t0 = time.perf_counter()
+    hist = train_launch.main(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    nll = [m["nll_per_token"] for m in hist]
+    log(f"[launch-train] launch.train.main({' '.join(args)}): logged steps "
+        f"{[m['step'] for m in hist]}, nll per token {nll}, {wall:.1f} s with the init; "
+        f"launches {dict(launches)} (unfused EC-SGHMC, as the reference launcher); peak "
+        f"{gib(peak)} [{card}]")
+    if not hist or not all(math.isfinite(v) for v in nll):
+        raise AssertionError(f"launch-train: nll per token {nll}")
+    reset_peak(torch)
+    return dict(nll=nll, wall=wall, peak=peak)
+
+
 def main() -> int:
+    # set before the first CUDA allocation: [refresh-ec] holds ~68 GiB of
+    # live stacks on an 80 GB card, and without expandable segments the
+    # splits of 1-2.5 GB blocks strand enough reserved memory to fail it
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     import torch
 
     if not torch.cuda.is_available():
@@ -1356,31 +1833,48 @@ def main() -> int:
 
     from repro_torch import configs
 
+    phase_s = {"build": secs}
+
+    def timed(name, fn, *args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        phase_s[name] = time.perf_counter() - t0
+        log(f"[time] {name}: {phase_s[name]:.1f} s")
+        return out
+
     qwen = configs.get_config("qwen3-0.6b")
-    flash = phase_flash(torch, ops, ref, F)
-    flash256 = phase_flash(torch, ops, ref, F, Hq=10, Hkv=1, d=256, cases=FLASH256_CASES,
-                           label="flash256", seed=17)
-    paged = phase_paged(torch, ops, ref)
-    bma = phase_bma(torch, ops, ref)
-    bma256k = phase_bma(torch, ops, ref, V=256000, label="bma256k", seed=18)
-    rglru = phase_rglru(torch, ops, ref)
-    fused = phase_fused_ec(torch, ops, ref, qwen)
-    precond = phase_fused_precond(torch, ops, ref, qwen)
-    phase_philox(torch, ops, ref, qwen)
-    phase_stationary(torch)
-    phase_stationary_precond(torch)
-    phase_smoke_engine(torch)
-    phase_smoke_train(torch)
-    counts, per_tick = phase_slice(torch, card)
+    flash = timed("flash", phase_flash, torch, ops, ref, F)
+    flash256 = timed("flash256", phase_flash, torch, ops, ref, F, Hq=10, Hkv=1, d=256,
+                     cases=FLASH256_CASES, label="flash256", seed=17)
+    paged = timed("paged", phase_paged, torch, ops, ref)
+    bma = timed("bma", phase_bma, torch, ops, ref)
+    bma256k = timed("bma256k", phase_bma, torch, ops, ref, V=256000, label="bma256k", seed=18)
+    rglru = timed("rglru", phase_rglru, torch, ops, ref)
+    fused = timed("fused_ec", phase_fused_ec, torch, ops, ref, qwen)
+    precond = timed("fused_precond", phase_fused_precond, torch, ops, ref, qwen)
+    timed("philox", phase_philox, torch, ops, ref, qwen)
+    timed("stationary", phase_stationary, torch)
+    timed("stationary-precond", phase_stationary_precond, torch)
+    timed("smoke-engine", phase_smoke_engine, torch)
+    timed("smoke-train", phase_smoke_train, torch)
+    counts, per_tick = timed("slice", phase_slice, torch, card)
     log(f"[slice] launches per decode tick: {per_tick} (flash: once per layer per member per admit)")
     gc.collect()
     torch.cuda.empty_cache()
-    train_counts, train = phase_train(torch, card)
+    train_counts, train = timed("train", phase_train, torch, card)
     counts["fused_ec_update"] = train_counts["fused_ec_update"]
-    adaptive_counts, train_adaptive = phase_train(torch, card, adaptive=True)
+    adaptive_counts, train_adaptive = timed("train-adaptive", phase_train, torch, card,
+                                            adaptive=True)
     counts["fused_precond_ec_update"] = adaptive_counts["fused_precond_ec_update"]
-    hybrid_counts, hybrid = phase_slice_hybrid(torch, card)
+    hybrid_counts, hybrid = timed("slice-hybrid", phase_slice_hybrid, torch, card)
     counts["rglru_scan"] = hybrid_counts["rglru_scan"]
+    serve_launch = timed("serve-launch", phase_serve_launch, torch, card)
+    setup = timed("refresh-setup", refresh_setup, torch, card)
+    refresh = timed("refresh", phase_refresh, torch, card, setup)
+    refresh["ec"] = timed("refresh-ec", phase_refresh_ec, torch, card, setup, refresh["over_tps"])
+    del setup
+    ckpt = timed("ckpt", phase_ckpt, torch, card)
+    launch_train = timed("launch-train", phase_launch_train, torch, card)
 
     f128 = next(r for r in flash if r["S"] == 128 and r["softcap"] is None)
     bg = next(r for r in bma if r["mode"] == "probs" and r["T"] == 0.0)
@@ -1411,7 +1905,11 @@ def main() -> int:
                                                   "rglru": rglru,
                                                   "fused_ec": fused, "fused_precond": precond,
                                                   "hybrid": hybrid, "train": train,
-                                                  "train_adaptive": train_adaptive},
+                                                  "train_adaptive": train_adaptive,
+                                                  "serve_launch": serve_launch,
+                                                  "refresh": refresh, "ckpt": ckpt,
+                                                  "launch_train": launch_train,
+                                                  "phase_s": phase_s},
                                                  indent=1, default=str))
     print(json.dumps({"kernels": kernels}))
     print(card)

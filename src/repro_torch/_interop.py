@@ -12,8 +12,9 @@ configs carry (jnp types, numpy dtypes or names) to torch dtypes, and
 Sampler states cross field by field: ``state_from_numpy`` turns a
 reference ``SGHMCState``/``ECSGHMCState`` whose leaves are numpy arrays
 (``jax.tree.map(np.asarray, state)``) into the port's state of the same
-name, with a host-int ``step``; ``state_to_numpy`` goes back to a dict of
-numpy trees.  A chain-stacked parameter tree crosses like any other tree.
+name on a given device, with a host-int ``step``; ``state_to_numpy`` goes
+back to a dict of numpy trees.  ``array_to_device`` is the numpy -> tensor
+step they share with ``train/checkpoint.py``.  A chain-stacked parameter tree crosses like any other tree.
 """
 from __future__ import annotations
 
@@ -60,11 +61,20 @@ def torch_dtype(dtype) -> torch.dtype:
     return _DTYPES[name]
 
 
-def array_to_tensor(a) -> torch.Tensor:
-    a = np.asarray(a)
-    if a.dtype.name == "bfloat16":
-        return torch.from_numpy(np.ascontiguousarray(a).view(np.int16).copy()).view(torch.bfloat16)
-    return torch.from_numpy(np.ascontiguousarray(a).copy())
+def array_to_device(a, device, dtype=None) -> torch.Tensor:
+    """A numpy array as a tensor on ``device``, in its own dtype.  A numpy
+    bfloat16 array becomes bfloat16; with ``dtype=torch.bfloat16`` a 2-byte
+    array (``uint16`` bits, or the raw 2-byte records ``np.savez`` leaves of
+    a numpy bfloat16 array) is read as bfloat16 bits too."""
+    arr = np.ascontiguousarray(a)
+    bf16_bits = arr.dtype.itemsize == 2 and (arr.dtype.kind == "V" or arr.dtype == np.uint16)
+    bf16 = arr.dtype.name == "bfloat16" or (dtype == torch.bfloat16 and bf16_bits)
+    if bf16:
+        arr = arr.view(np.int16)
+    if torch.device(device).type == "cpu" or not arr.flags.writeable:
+        arr = arr.copy()  # never share the array's memory: the port's samplers write in place
+    t = torch.from_numpy(arr)
+    return (t.view(torch.bfloat16) if bf16 else t).to(device)
 
 
 def tensor_to_array(t: torch.Tensor) -> np.ndarray:
@@ -78,7 +88,7 @@ def tree_from_numpy(tree):
     """Nested dict of numpy arrays -> the same dict of CPU tensors."""
     if isinstance(tree, dict):
         return {k: tree_from_numpy(v) for k, v in tree.items()}
-    return array_to_tensor(tree)
+    return array_to_device(tree, "cpu")
 
 
 def tree_to_numpy(tree):
@@ -102,7 +112,7 @@ def config_from(ref_cfg) -> ModelConfig:
     return ModelConfig(**kw)
 
 
-def state_from_numpy(ref_state, device="cpu"):
+def state_from_numpy(ref_state, *, device):
     """A reference sampler state (NamedTuple of numpy trees) -> the port's
     state class of the same name, tensors on ``device``."""
     from repro_torch.core.ec_sghmc import ECSGHMCState
@@ -117,7 +127,7 @@ def state_from_numpy(ref_state, device="cpu"):
     for f in cls._fields:
         val = getattr(ref_state, f)
         kw[f] = (int(np.asarray(val)) if f == "step"
-                 else tree_map(lambda x: x.to(device), tree_from_numpy(val)))
+                 else tree_map(lambda x: array_to_device(x, device), val))
     return cls(**kw)
 
 

@@ -44,7 +44,8 @@ from repro_torch.kernels import ref as kref
 from . import rng as rnglib
 from .schedules import as_schedule
 from .sghmc import _noise_scale
-from .tree_util import count_params, global_norm, tree_leaves, tree_map, tree_unflatten
+from .tree_util import (count_params, global_norm, leaf_normals, tree_leaves, tree_map,
+                        tree_unflatten)
 from .types import Sampler
 
 F32 = np.float32
@@ -71,19 +72,6 @@ def p_step(p, g, theta, c_tilde, noise, *, eps, friction, minv, alpha, sigma_p,
         + sp * noise
     )
     return out.to(out_dtype)
-
-
-def _leaf_noise(given, key, target):
-    """Standard normals leaf by leaf in flatten order: the handed-in tree's
-    leaves, or ``tree_random_normal``'s draws from ``key``, made one leaf
-    at a time so the whole noise tree never exists."""
-    if given is not None:
-        yield from tree_leaves(given)
-        return
-    leaves = tree_leaves(target)
-    gen = rnglib.generator(key, leaves[0].device)
-    for x in leaves:
-        yield torch.randn(x.shape, generator=gen, dtype=torch.float32, device=x.device)
 
 
 class ECSGHMCState(NamedTuple):
@@ -163,7 +151,7 @@ def ec_sghmc(
         else:
             for p, g, th, ct, n in zip(
                     *map(tree_leaves, (state.momentum, grads, params, state.center_stale)),
-                    _leaf_noise(None if noise is None else noise["p"], k_p, state.momentum)):
+                    leaf_normals(None if noise is None else noise["p"], k_p, state.momentum)):
                 p.copy_(p_step(p, g, th, ct, n, eps=eps, friction=friction, minv=minv,
                                alpha=alpha, sigma_p=sigma_p, out_dtype=state_dtype))
 
@@ -172,7 +160,7 @@ def ec_sghmc(
         r_coupling = float(eps * F32(alpha))
         for c, r, mth, n in zip(
                 *map(tree_leaves, (state.center, state.center_momentum, state.mean_theta_stale)),
-                _leaf_noise(None if noise is None else noise["r"], k_r, state.center_momentum)):
+                leaf_normals(None if noise is None else noise["r"], k_r, state.center_momentum)):
             r32 = r.float()
             r_new = r32 - r_decay * r32 - r_coupling * (c.float() - mth.float()) + sigma_r * n
             c.copy_(c.float() + em * r32)

@@ -31,11 +31,12 @@ import numpy as np
 import torch
 
 from . import rng as rnglib
-from .ec_sghmc import _leaf_noise, ec_stats, p_step, stale_exchange
+from .ec_sghmc import ec_stats, p_step, stale_exchange
 from .preconditioner import PrecondState, rmsprop_preconditioner
 from .schedules import as_schedule
 from .sghmc import _noise_scale
-from .tree_util import global_norm, tree_leaves, tree_map, tree_random_normal, tree_unflatten
+from .tree_util import (global_norm, leaf_normals, tree_leaves, tree_map, tree_random_normal,
+                        tree_unflatten)
 from .types import Sampler
 
 F32 = np.float32
@@ -195,8 +196,8 @@ def scale_adapted_ec_sghmc(
         if fused and noise is None:  # Philox noise in the kernel
             p_noise = [None] * len(leaves)
         else:  # normals, or the kernel's (bits1, bits2) per leaf
-            p_noise = _leaf_noise(None if noise is None else noise["p"], k_p, state.momentum)
-        r_noise = _leaf_noise(None if noise is None else noise["r"], k_r, state.center_momentum)
+            p_noise = leaf_normals(None if noise is None else noise["p"], k_p, state.momentum)
+        r_noise = leaf_normals(None if noise is None else noise["r"], k_r, state.center_momentum)
         updates = []
         for i, ((th, p, g, v, c, r, ct, mth), pn, rn) in enumerate(zip(leaves, p_noise, r_noise)):
             m, _ = pre.update_leaf(v, g, state.precond.step)

@@ -11,11 +11,9 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import numpy as np
-import torch
 
-from . import rng as rnglib
 from .schedules import as_schedule
-from .tree_util import tree_leaves, tree_random_normal, tree_unflatten
+from .tree_util import leaf_normals, tree_leaves, tree_unflatten
 from .types import Sampler
 
 F32 = np.float32
@@ -40,12 +38,9 @@ def sgld(step_size, temperature: float = 1.0) -> Sampler:
         del params
         eps = F32(schedule(state.step))
         sigma = float(np.sqrt(F32(2.0) * eps * F32(temperature)))
-        if noise is None:
-            dev = tree_leaves(grads)[0].device
-            noise = tree_random_normal(rnglib.generator(rng, dev), grads, torch.float32)
         neg = float(-eps)
         updates = tree_unflatten(grads, [neg * g.float() + sigma * n for g, n in
-                                         zip(tree_leaves(grads), tree_leaves(noise))])
+                                         zip(tree_leaves(grads), leaf_normals(noise, rng, grads))])
         return updates, SGLDState(step=state.step + 1)
 
     return Sampler(init, update)

@@ -8,10 +8,13 @@ import torch
 
 from repro_torch.models.common import tree_leaves, tree_map, tree_unflatten
 
+from . import rng as rnglib
+
 __all__ = [
     "apply_updates",
     "count_params",
     "global_norm",
+    "leaf_normals",
     "tree_add",
     "tree_broadcast_axis0",
     "tree_cast",
@@ -62,6 +65,20 @@ def tree_random_normal(generator: torch.Generator, target, dtype=None):
         torch.randn(x.shape, generator=generator, dtype=dtype or x.dtype, device=x.device)
         for x in tree_leaves(target)
     ])
+
+
+def leaf_normals(given, key, target):
+    """Standard normals shaped like ``target``'s leaves, in flatten order:
+    the leaves of ``given`` when it is not None, else f32 draws from one
+    generator seeded by ``key`` (``tree_random_normal``'s draws), made one
+    leaf at a time so that the whole noise tree never exists."""
+    if given is not None:
+        yield from tree_leaves(given)
+        return
+    leaves = tree_leaves(target)
+    gen = rnglib.generator(key, leaves[0].device)
+    for x in leaves:
+        yield torch.randn(x.shape, generator=gen, dtype=torch.float32, device=x.device)
 
 
 def apply_updates(params, updates):

@@ -32,6 +32,7 @@ from .moments import (
 from .spread import (
     chain_center_rms,
     cross_chain_spread,
+    ensemble_spread,
     ensemble_spread_device,
     pooled_moments,
 )
@@ -52,6 +53,7 @@ __all__ = [
     "cross_chain_spread",
     "effective_sample_size",
     "effective_sample_size_nd",
+    "ensemble_spread",
     "ensemble_spread_device",
     "pooled_moments",
     "split_rhat",

@@ -39,6 +39,18 @@ def ensemble_spread_device(params_stack) -> dict:
     }
 
 
+def ensemble_spread(params_stack) -> dict:
+    """Serving-side ensemble health as host floats: how dispersed the K
+    posterior samples are (a collapsed ensemble is a silent BMA no-op).
+    ``rel_spread`` is scale-free: per-element cross-chain std over the RMS
+    parameter magnitude.  Host-syncing wrapper around
+    :func:`ensemble_spread_device`."""
+    leaves = tree_leaves(params_stack)
+    out = {k: float(v) for k, v in ensemble_spread_device(params_stack).items()}
+    out["num_chains"] = int(leaves[0].shape[0])
+    return out
+
+
 def chain_center_rms(tree, center) -> torch.Tensor:
     """RMS distance of chains from a center tree (leaves without the chain
     axis): sqrt(mean_i,elem (θⁱ - c)²), the elastic-coupling energy scale."""

@@ -1,6 +1,6 @@
 """Sampler wiring per architecture.  Only ``default_sampler`` of
-``repro/launch/specs.py`` is ported; the dry-run cells wait for
-``launch/``."""
+``repro/launch/specs.py`` is ported; the dry-run cells (``Cell``,
+``build_cell``) wait for ``launch/dryrun.py``."""
 from __future__ import annotations
 
 from repro_torch.core import ec_sghmc, sghmc

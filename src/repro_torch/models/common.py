@@ -39,14 +39,15 @@ def tree_leaves(tree) -> list:
 def tree_unflatten(template, leaves):
     """The tree of ``template``'s structure holding ``leaves`` in flatten
     order (the inverse of :func:`tree_leaves`)."""
-    it = iter(leaves)
+    return _build(template, iter(leaves))
 
-    def build(t):
-        if isinstance(t, dict):
-            return {k: build(t[k]) for k in sorted(t)}
-        return next(it)
 
-    return build(template)
+def _build(template, it):
+    # a module-level function: a recursive closure would be a reference
+    # cycle holding ``leaves`` until Python's cycle collector ran
+    if isinstance(template, dict):
+        return {k: _build(template[k], it) for k in sorted(template)}
+    return next(it)
 
 
 def tree_map(fn, tree, *rest):

@@ -27,11 +27,14 @@ Key modes (``key_mode``), as in the reference, over ``core.rng`` keys:
 * ``"carry"`` — a key rides the carry and is split once per step.
 
 The carry is CONSUMED: samplers and ``apply_updates`` update tensors in
-place, so the params and state passed to ``run`` are the ones advanced.
+place, so the params and state passed to ``run`` or ``stream`` are the
+ones advanced.  ``stream`` is the chunk-boundary snapshot hook of the
+serving refresher: because the carry is written in place, its snapshots
+are copies (the reference may hand out its immutable carry itself), and
+its readiness probe is a CUDA event, not a device scalar.
 Not ported yet (``NotImplementedError``): swept runs (``sweep=True``, a
-vmapped axis of hyperparameters), ``stream`` (with the serving
-refresher) and ``run_sharded``/``lower_sharded`` (multi-GPU).  Capturing a
-chunk as a CUDA graph is later performance work.
+vmapped axis of hyperparameters) and ``run_sharded``/``lower_sharded``
+(multi-GPU).  Capturing a chunk as a CUDA graph is later performance work.
 """
 from __future__ import annotations
 
@@ -43,6 +46,7 @@ import torch
 
 from repro_torch.core import rng as rnglib
 from repro_torch.core.tree_util import apply_updates, tree_leaves, tree_map
+from repro_torch.obs import trace as obs_trace
 from repro_torch.diagnostics import (
     BatchMeansState,
     MomentState,
@@ -52,6 +56,23 @@ from repro_torch.diagnostics import (
     welford_add,
     welford_init,
 )
+
+
+class ChunkSnapshot(NamedTuple):
+    """One chunk-boundary observation from ``ChainExecutor.stream``:
+    ``step`` is the absolute step index at the boundary; ``params``/``state``
+    are copies (or None between proposal boundaries), since the live carry
+    is updated in place by the next chunk.  ``probe`` is a ``torch.cuda.Event``
+    recorded on the current stream after the chunk's last launch (its
+    boundary copies included): ``probe.query()`` answers "has this chunk
+    retired?" without a host sync.  None on the CPU, where a chunk has
+    retired when ``next()`` returns."""
+
+    step: int
+    params: Any
+    state: Any
+    outs: Any
+    probe: Any = None
 
 
 class RunResult(NamedTuple):
@@ -93,7 +114,27 @@ def _sync(tree) -> None:
 
 
 def _copy(tree):
-    return tree_map(lambda x: x.detach().clone() if isinstance(x, torch.Tensor) else x, tree)
+    """A copy of every tensor of a tree of dicts, tuples and NamedTuples
+    (a sampler state); other leaves (host ints) are shared."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().clone()
+    if isinstance(tree, dict):
+        return {k: _copy(v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        items = [_copy(v) for v in tree]
+        return type(tree)(*items) if hasattr(tree, "_fields") else tuple(items)
+    return tree
+
+
+def _probe(tree):
+    """An event recorded on the current stream of the tree's CUDA device,
+    or None for CPU tensors."""
+    leaf = tree_leaves(tree)[0]
+    if not (isinstance(leaf, torch.Tensor) and leaf.is_cuda):
+        return None
+    ev = torch.cuda.Event()
+    ev.record(torch.cuda.current_stream(leaf.device))
+    return ev
 
 
 class ChainExecutor:
@@ -216,46 +257,19 @@ class ChainExecutor:
             raise ValueError(f"key_mode={self.key_mode!r} needs key=")
         if self.trace_fn is not None and num_steps % self.thin != 0:
             raise ValueError("num_steps must be a multiple of thin when tracing")
-        wf = ess = None
+        acc = {"wf": None, "ess": None, "carry_key": key}
         if self.moments:
-            wf = welford_init(params)
+            acc["wf"] = welford_init(params)
         if self.ess_probe_fn is not None:
-            ess = batch_ess_init(self.ess_probe_fn(params), self.ess_batch_len)
-        carry_key = key
+            acc["ess"] = batch_ess_init(self.ess_probe_fn(params), self.ess_batch_len)
         traces, stats, metrics = [], [], {}
         t_run, t_abs = 0, int(start_step)
         t0 = time.perf_counter()
         stopped = False
         while t_run < num_steps and not stopped:
             n = min(self.chunk_steps, num_steps - t_run)
-            step, stats_fn = self._step(hyper)
-            every = self.thin if self.trace_fn is not None else n
-            outs = {"metrics": []}
-            if self.trace_fn is not None:
-                outs["trace"] = []
-            if self.collect_stats and stats_fn is not None:
-                outs["stats"] = []
-            for i in range(n):
-                if self.key_mode == "keys":
-                    rng = keys[t_run + i]
-                elif self.key_mode == "fold":
-                    rng = rnglib.fold_in(key, t_abs + i)
-                else:
-                    carry_key, rng = rnglib.split(carry_key)
-                batch = self.batch_fn(t_abs + i) if self.batch_fn is not None else None
-                params, state, metrics = step(params, state, batch, rng)
-                if t_abs + i >= self.moments_from:
-                    if wf is not None:
-                        wf = welford_add(wf, params)
-                    if ess is not None:
-                        ess = batch_ess_add(ess, self.ess_probe_fn(params))
-                if (i + 1) % every == 0:
-                    outs["metrics"].append(metrics)
-                    if "trace" in outs:
-                        outs["trace"].append(_copy(self.trace_fn(params)))
-                    if "stats" in outs:
-                        outs["stats"].append(stats_fn(state, params))
-            outs = {k: _stack(v) if v and not _empty(v[0]) else {} for k, v in outs.items()}
+            params, state, metrics, outs = self._chunk(
+                params, state, hyper, n=n, t_run=t_run, t_abs=t_abs, key=key, keys=keys, acc=acc)
             t_run += n
             t_abs += n
             if "trace" in outs:
@@ -265,7 +279,8 @@ class ChainExecutor:
             if on_chunk is not None and on_chunk(t_abs, params, state, outs) is False:
                 stopped = True
             if adapt_fn is not None and t_run < num_steps and not stopped:
-                carry = {"params": params, "state": state, "t": t_abs, "wf": wf, "ess": ess}
+                carry = {"params": params, "state": state, "t": t_abs, "wf": acc["wf"],
+                         "ess": acc["ess"]}
                 new_hyper = adapt_fn(t_abs, carry, hyper)
                 if new_hyper is not None:
                     hyper = new_hyper
@@ -278,14 +293,106 @@ class ChainExecutor:
             trace=cat(traces) if traces else None,
             stats=cat(stats) if stats else None,
             metrics=metrics,
-            moments=wf,
-            ess=ess,
+            moments=acc["wf"],
+            ess=acc["ess"],
             steps=t_run,
             wall_s=wall,
         )
 
-    def stream(self, *args, **kwargs):
-        raise NotImplementedError("ChainExecutor.stream waits for the serving refresher in the port")
+    def _chunk(self, params, state, hyper, *, n, t_run, t_abs, key, keys, acc):
+        """Advance ``n`` steps from absolute step ``t_abs`` (``t_run`` into
+        the run); ``acc`` holds the in-carry accumulators and the carried key
+        and is updated.  Returns (params, state, last metrics, outs)."""
+        step, stats_fn = self._step(hyper)
+        every = self.thin if self.trace_fn is not None else n
+        outs = {"metrics": []}
+        if self.trace_fn is not None:
+            outs["trace"] = []
+        if self.collect_stats and stats_fn is not None:
+            outs["stats"] = []
+        metrics = {}
+        for i in range(n):
+            if self.key_mode == "keys":
+                rng = keys[t_run + i]
+            elif self.key_mode == "fold":
+                rng = rnglib.fold_in(key, t_abs + i)
+            else:
+                acc["carry_key"], rng = rnglib.split(acc["carry_key"])
+            batch = self.batch_fn(t_abs + i) if self.batch_fn is not None else None
+            params, state, metrics = step(params, state, batch, rng)
+            if t_abs + i >= self.moments_from:
+                if acc["wf"] is not None:
+                    acc["wf"] = welford_add(acc["wf"], params)
+                if acc["ess"] is not None:
+                    acc["ess"] = batch_ess_add(acc["ess"], self.ess_probe_fn(params))
+            if (i + 1) % every == 0:
+                outs["metrics"].append(metrics)
+                if "trace" in outs:
+                    outs["trace"].append(_copy(self.trace_fn(params)))
+                if "stats" in outs:
+                    outs["stats"].append(stats_fn(state, params))
+        outs = {k: _stack(v) if v and not _empty(v[0]) else {} for k, v in outs.items()}
+        return params, state, metrics, outs
+
+    def stream(
+        self,
+        params,
+        state,
+        *,
+        num_steps: int,
+        key=None,
+        keys=None,
+        start_step: int = 0,
+        copy_snapshots: bool = True,
+        snapshot_every: int = 1,
+    ):
+        """Chunk-boundary snapshot hook: a generator that advances the run
+        one chunk at a time and yields a :class:`ChunkSnapshot` at every
+        boundary, the surface the serving refresher draws members from.
+
+        Nothing is accumulated across chunks: the caller owns each boundary.
+        ``snapshot_every=k`` is the micro-chunk hook: every boundary yields,
+        but params/state are copied only at every k-th boundary and at the
+        final one (the proposal boundaries); the yields between carry
+        ``params=state=None``.  With ``key_mode='fold'`` splitting a chunk
+        into micro-chunks is bit-identical to the unsplit run.
+
+        ``copy_snapshots=False`` yields the live carry itself.  The next
+        chunk then writes the yielded tensors in place, so such a snapshot
+        is valid only until ``next()`` is called again.
+
+        Nothing here syncs the host: every launch, copy and the probe's
+        event are queued on the current stream, so a caller may drive the
+        generator under a side ``torch.cuda.stream``."""
+        if self.key_mode == "keys" and keys is None:
+            raise ValueError("key_mode='keys' needs keys=")
+        if self.key_mode in ("fold", "carry") and key is None:
+            raise ValueError(f"key_mode={self.key_mode!r} needs key=")
+        if self.trace_fn is not None and num_steps % self.thin != 0:
+            raise ValueError("num_steps must be a multiple of thin when tracing")
+        if self.sampler_factory is not None:
+            raise ValueError("stream does not support sampler_factory mode")
+        if snapshot_every < 1:
+            raise ValueError("snapshot_every must be >= 1")
+        copy = _copy if copy_snapshots else (lambda tr: tr)
+        acc = {"wf": None, "ess": None, "carry_key": key}
+        t_run, t_abs, boundary = 0, int(start_step), 0
+        while t_run < num_steps:
+            n = min(self.chunk_steps, num_steps - t_run)
+            with obs_trace.get().span("executor.chunk", cat="executor", step=t_abs, n=n,
+                                      stream=True):
+                params, state, _, outs = self._chunk(
+                    params, state, None, n=n, t_run=t_run, t_abs=t_abs, key=key, keys=keys,
+                    acc=acc)
+            t_run += n
+            t_abs += n
+            boundary += 1
+            # built in the yield: a copy held in a local of this frame would
+            # stay alive through the next chunk, after the caller dropped it
+            if boundary % snapshot_every == 0 or t_run >= num_steps:
+                yield ChunkSnapshot(t_abs, copy(params), copy(state), outs, _probe(params))
+            else:
+                yield ChunkSnapshot(t_abs, None, None, outs, _probe(params))
 
     def run_sharded(self, *args, **kwargs):
         raise NotImplementedError("run_sharded waits for multi-GPU chains in the port")

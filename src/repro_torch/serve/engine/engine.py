@@ -1,5 +1,6 @@
 """Posterior-predictive serving engine: continuous batching over a fixed
-slot axis and Bayesian model averaging over K ensemble members.
+slot axis, Bayesian model averaging over K ensemble members, and live
+snapshot refresh from the coupled sampler.
 
 Every tick decodes all slots through each of the K members (a loop over
 members; each member decodes the whole slot axis in one batched call),
@@ -21,9 +22,13 @@ Sampling randomness comes from ``torch.Generator``s reseeded per decode
 tick and per admitted request from (``seed``, stream, index), mirroring
 the reference's ``fold_in`` keys: a tick's draw does not depend on history.
 
-Left out of this port so far (they raise): ``mesh`` (multi-device layout),
-``refresher`` (live refresh from the background sampler) and
-``compress_parked``.  The reference pins that decode is ONE compiled
+``refresher`` (a ``ChainRefresher`` or the overlapped ``RefreshScheduler``
+feeding the same registry) is bound at construction and pumped once per
+tick before the decode; promotions rebind the registry's members and take
+effect at the next member read.
+
+Left out of this port so far (they raise): ``mesh`` (multi-device layout)
+and ``compress_parked``.  The reference pins that decode is ONE compiled
 program; eager PyTorch has no counterpart of that pin (capturing the tick
 in a CUDA graph would be), so ``trace_counts`` here counts decode calls
 and admits per prompt length.
@@ -44,7 +49,7 @@ from repro_torch.serve.sampling import GREEDY, SamplingParams, select_tokens
 
 from .bma import BMA_MODES, fused_mixture_select, mixture_logprobs
 from .cache_pool import CachePool, PagedCachePool
-from .registry import SnapshotRegistry
+from .registry import ChainRefresher, SnapshotRegistry
 from .scheduler import FCFSQueue, Request, RequestResult
 
 _MASK64 = (1 << 64) - 1
@@ -107,6 +112,12 @@ class ServeEngine:
 
     ``members``: a (K, ...)-stacked parameter dict or a
     :class:`SnapshotRegistry`, already on ``device`` (nothing is moved).
+    ``refresher`` (optional, a :class:`ChainRefresher` or an overlapped
+    :class:`~repro_torch.serve.engine.refresh.RefreshScheduler` feeding the
+    same registry) is bound at construction and pumped EVERY decode tick;
+    it amortizes one sampler chunk per ``refresh_every`` ticks — stale
+    members serve until the registry promotes a candidate that passes the
+    spread gate.
     """
 
     def __init__(
@@ -122,7 +133,8 @@ class ServeEngine:
         eos_id: int | None = None,
         pad_id: int = 0,
         cache_dtype=None,
-        refresher=None,
+        refresher: ChainRefresher | None = None,
+        refresh_every: int = 0,
         compress_parked: bool = False,
         record_logprobs: bool = False,
         seed: int = 0,
@@ -138,8 +150,6 @@ class ServeEngine:
             raise ValueError(f"bma must be one of {BMA_MODES}")
         if mesh is not None:
             raise NotImplementedError("mesh (multi-device serving) is not ported yet")
-        if refresher is not None:
-            raise NotImplementedError("refresher (live refresh from the sampler) is not ported yet")
         self.device = torch.device(device)
         self.cfg, self.model = cfg, model
         self.registry = members if isinstance(members, SnapshotRegistry) else SnapshotRegistry(members)
@@ -152,6 +162,10 @@ class ServeEngine:
         self.pad_id = int(pad_id)
         self.max_seq = int(max_seq)
         self.cache_dtype = cache_dtype
+        self.refresher = refresher
+        self.refresh_every = int(refresh_every)
+        if refresher is not None and refresher.registry is not self.registry:
+            raise ValueError("refresher must feed this engine's registry")
         self._seen_version = self.registry.version
         self.record_logprobs = bool(record_logprobs)
         self.paged = bool(paged)
@@ -176,11 +190,45 @@ class ServeEngine:
         self._gen = torch.Generator(device=self.device)
         self.trace_counts: Counter = Counter()
         self.decode_steps = 0
+        self._placed_version = self.registry.version
+        if refresher is not None and hasattr(refresher, "bind"):
+            # pacing, placement and warm-up happen here, at construction —
+            # never on a serving request
+            refresher.bind(self)
+
+    # -- members ---------------------------------------------------------------
+
+    def _members(self):
+        """Registry members in the engine's placement.  Promotions from any
+        source (overlapped scheduler, sync ChainRefresher, manual propose)
+        are placed once per registry version; the overlapped flip places
+        and marks, making this a no-op."""
+        if self._placed_version != self.registry.version:
+            self.registry.members = self._place_members(self.registry.members)
+            self._placed_version = self.registry.version
+        return self.registry.members
+
+    def _place_members(self, tree):
+        """A candidate member stack on the engine's device: leaves already
+        there pass through; a stack from another device (a sampler on a
+        spare card) is copied, queued on the current stream."""
+        def place(a):
+            same = a.device.type == self.device.type and (
+                self.device.index is None or a.device.index == self.device.index)
+            return a if same else a.to(self.device, non_blocking=True)
+
+        return tree_map(place, tree)
+
+    def mark_members_placed(self) -> None:
+        """Tell :meth:`_members` the current registry version is already in
+        engine placement (the overlapped refresher places candidates through
+        :meth:`_place_members` at the flip)."""
+        self._placed_version = self.registry.version
 
     # -- per-tick programs ---------------------------------------------------
 
     def _member(self, k: int):
-        return tree_map(lambda a: a[k], self.registry.members)
+        return tree_map(lambda a: a[k], self._members())
 
     def _generator(self, stream: int, index: int) -> torch.Generator:
         """The engine's generator, reseeded for (stream, index): stream 0 is
@@ -323,11 +371,14 @@ class ServeEngine:
         """Serve ``requests`` (a list of :class:`Request`) to completion.
 
         Per scheduler tick: (1) admit pending arrivals into free slots
-        (prefill-on-admit, first token emitted), (2) one decode step for the
-        whole slot axis, (3) collect emissions, finalise and recycle
-        finished slots.  Idle periods fast-forward the tick clock.  Hitting
-        ``max_steps`` finalises in-flight requests (``truncated=True``);
-        still-pending requests are dropped."""
+        (prefill-on-admit, first token emitted), (2) pump the snapshot
+        refresher (amortized: a whole sampler chunk lands once per
+        ``refresh_every`` ticks, its cost spread over every tick in
+        between), (3) one decode step for the whole slot axis, (4) collect
+        emissions, finalise and recycle finished slots.  Idle periods
+        fast-forward the tick clock.  Hitting ``max_steps`` finalises
+        in-flight requests (``truncated=True``); still-pending requests are
+        dropped."""
         queue = FCFSQueue(requests)
         active: dict[int, _Active] = {}
         results: list[RequestResult] = []
@@ -359,7 +410,10 @@ class ServeEngine:
                     break
                 queue.pop()
                 self._do_admit(req, step, submit_s[req.rid], active, results, wall)
-            self._note_version()
+            if self.refresher is not None and self.refresh_every:
+                # every tick: flip-if-ready + credit-paced micro-chunks
+                self.refresher.pump(step)
+            self._note_version()  # promotions (any source) invalidate stale prefixes
             if active:
                 # the span covers launch AND the emissions fetch below, which
                 # waits for the device: the true per-tick wall time
@@ -407,7 +461,7 @@ class ServeEngine:
             trace_counts=dict(self.trace_counts),
             pool=self.pool.stats(),
             registry=self.registry.stats(),
-            refresher=None,
+            refresher=self.refresher.stats() if self.refresher else None,
         )
         self._absorb_metrics(report)
         return report
@@ -430,6 +484,8 @@ class ServeEngine:
         else:
             reg.absorb("serve.pool", report.pool)
         reg.absorb("serve.registry", report.registry)
+        if report.refresher:
+            reg.absorb("serve.refresh", report.refresher)
         lat = reg.histogram("serve.request.latency_s")
         ftl = reg.histogram("serve.request.first_token_s")
         for r in report.results:

@@ -1,23 +1,28 @@
-"""The training loop: sampler-driven posterior sampling in chunks.
+"""The training loop: sampler-driven posterior sampling with fault
+tolerance (atomic checkpoints, auto-resume, simulated preemption) and
+elastic chain scaling.
 
 The executor (``run.ChainExecutor``, key mode ``"fold"``) advances chunks
 of steps; the host acts only at chunk boundaries.  The chunk length is the
-GCD of every host-event cadence (logging, simulated preemption), so each
-event lands exactly on a boundary.  Checkpointing (``ckpt_dir``) waits for
-``train/checkpoint.py`` in the port and raises ``NotImplementedError``.
+GCD of every host-event cadence (checkpoint, logging, simulated
+preemption), so each event lands exactly on a boundary.  The step's key is
+folded from the absolute step index, so a resumed run draws the noise the
+uninterrupted run would have drawn.
 """
 from __future__ import annotations
 
-import logging
 import math
 import time
 from dataclasses import dataclass
 from typing import Callable, Optional
 
 from repro_torch.core import rng as rnglib
+from repro_torch.obs import get_logger
 from repro_torch.run import ChainExecutor
 
-log = logging.getLogger("repro_torch.train.loop")
+from . import checkpoint as ckpt_lib
+
+log = get_logger("loop")
 
 
 @dataclass
@@ -64,10 +69,18 @@ def run(
 ):
     """Returns (params, state, history).  ``history`` holds one dict per
     logging boundary: the step's metrics, the sampler's stats and the wall
-    time.  The params and state passed in are advanced in place."""
-    del num_chains, alpha  # used by the elastic resume of checkpoints
+    time.  Auto-resumes from ``cfg.ckpt_dir`` (elastically when the chain
+    count changed); the params and state passed in are the templates of
+    that restore and are otherwise advanced in place."""
+    params, state = init_params, init_state
+    start = 0
     if cfg.ckpt_dir:
-        raise NotImplementedError("checkpointing waits for train/checkpoint.py in the port")
+        got = ckpt_lib.restore_elastic(
+            cfg.ckpt_dir, params, state, num_chains=num_chains, alpha=alpha, seed=cfg.seed
+        )
+        if got is not None:
+            start, params, state, extra = got
+            log.info(f"resumed from step {start}" + (" (elastic)" if extra.get("elastic_resample") else ""))
     executor = ChainExecutor(step_fn=train_step, batch_fn=batch_fn, key_mode="fold",
                              chunk_steps=_chunk_steps(cfg))
     stats_fn = sampler.stats if sampler is not None and sampler.stats else None
@@ -75,6 +88,9 @@ def run(
     t0 = time.time()
 
     def on_chunk(step_end, params, state, outs):
+        if cfg.ckpt_dir and step_end % cfg.ckpt_every == 0:
+            ckpt_lib.save(cfg.ckpt_dir, step_end, params, state)
+            ckpt_lib.prune(cfg.ckpt_dir, cfg.keep_ckpts)
         if cfg.log_every and step_end % cfg.log_every == 0:
             m = {k: float(v[-1]) for k, v in outs["metrics"].items()}
             if stats_fn is not None:
@@ -87,6 +103,8 @@ def run(
         if cfg.preempt_at is not None and step_end == cfg.preempt_at:
             raise Preempted(f"simulated preemption at step {step_end}")
 
-    result = executor.run(init_params, init_state, num_steps=cfg.num_steps,
-                          key=rnglib.key(cfg.seed), on_chunk=on_chunk)
-    return result.params, result.state, history
+    if start < cfg.num_steps:
+        result = executor.run(params, state, num_steps=cfg.num_steps - start,
+                              key=rnglib.key(cfg.seed), start_step=start, on_chunk=on_chunk)
+        params, state = result.params, result.state
+    return params, state, history

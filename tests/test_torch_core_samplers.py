@@ -140,7 +140,7 @@ def test_state_crosses_from_reference():
     jparams = jax.tree.map(jnp.asarray, _params(7))
     jstate = jsamp.init(jparams)
     jup, jstate = jsamp.update(_grad_j(jparams), jstate, jparams, jax.random.PRNGKey(0))
-    state = _interop.state_from_numpy(jax.tree.map(np.asarray, jstate))
+    state = _interop.state_from_numpy(jax.tree.map(np.asarray, jstate), device="cpu")
     assert isinstance(state, core.ECSGHMCState) and state.step == 1
     for name in state._fields[:-1]:
         _assert_tree_close(getattr(state, name), getattr(jstate, name), atol=0.0)

@@ -127,8 +127,8 @@ def test_step_fn_mode_and_batches():
     assert float(res.metrics["b"]) == 16.0
 
 
-@pytest.mark.parametrize("call", ["factory", "hyper", "adapt", "stream", "sharded", "lower",
-                                  "feedback", "sweep"])
+@pytest.mark.parametrize("call", ["factory", "hyper", "adapt", "sharded", "lower", "feedback",
+                                  "sweep"])
 def test_unported_modes_raise(call):
     samp = _sampler()
     mk = lambda: ChainExecutor(sampler=samp, grad_fn=lambda t, b: _grad(t), key_mode="fold")
@@ -136,13 +136,14 @@ def test_unported_modes_raise(call):
     factory = lambda: ChainExecutor(sampler_factory=lambda h: samp, grad_fn=lambda t, b: t,
                                     key_mode="fold", ess_probe_fn=lambda p: p[0])
     # sampler_factory, adapt_fn and ess_feedback_adapter are ported for
-    # unswept hyper; the swept runs (hyper without sweep=False) still wait
+    # unswept hyper, and stream with the serving refresher (its tests are in
+    # test_torch_refresh.py); the swept runs (hyper without sweep=False) and
+    # the sharded runs still wait
     calls = {
         "factory": lambda: factory().run(p0, samp.init(p0), num_steps=1, key=1, hyper={}),
         "hyper": lambda: mk().run(p0, samp.init(p0), num_steps=1, key=1, hyper={}),
         "adapt": lambda: mk().run(p0, samp.init(p0), num_steps=1, key=1, hyper={}, sweep=True,
                                   adapt_fn=lambda *a: None),
-        "stream": lambda: mk().stream(p0, None, num_steps=1, key=1),
         "sharded": lambda: mk().run_sharded(p0, None, num_steps=1, key=1, mesh=None),
         "lower": lambda: mk().lower_sharded(p0, None, num_steps=1, key=1, mesh=None),
         "feedback": lambda: factory().run(p0, samp.init(p0), num_steps=2, key=1, hyper={},

@@ -13,6 +13,8 @@ per-member reference.
 """
 from __future__ import annotations
 
+from types import SimpleNamespace
+
 import jax
 import numpy as np
 import pytest
@@ -132,8 +134,10 @@ def test_unported_options_raise(setup):
     kw = dict(num_slots=2, max_seq=MAX_SEQ, device="cpu")
     with pytest.raises(NotImplementedError, match="mesh"):
         ServeEngine(cfg, model, members, mesh=object(), **kw)
-    with pytest.raises(NotImplementedError, match="refresher"):
-        ServeEngine(cfg, model, members, refresher=object(), **kw)
+    # the refresher is ported (tests/test_torch_refresh.py); what is left to
+    # refuse is one that feeds another registry, as the reference refuses it
+    with pytest.raises(ValueError, match="refresher must feed"):
+        ServeEngine(cfg, model, members, refresher=SimpleNamespace(registry=None), **kw)
     with pytest.raises(NotImplementedError, match="compress_parked"):
         ServeEngine(cfg, model, members, compress_parked=True, **kw)
 
