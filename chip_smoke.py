@@ -27,11 +27,14 @@ It imports torch, numpy and repro_torch only, and:
    bit for bit up to a 32k-token prompt, with an R that is not made of
    16-byte pieces, and with f16 and mixed-dtype inputs (``[rglru]``); the
    select and scan rows also by device time per call;
-4. the sampler: checks the fused EC-SGHMC kernel's in-kernel Philox noise
+4. the sampler: holds the fused kernel against its plain version bit for
+   bit at every leaf shape of the paper's MLP and ResNet-32 at K = 6, in
+   both noise modes, with each shape's time beside its bound, checks the
+   fused EC-SGHMC kernel's in-kernel Philox noise
    against N(0, 1) over the 2.38e9 elements of a qwen3-0.6b K=4 step, runs
-   fused EC-SGHMC on a Gaussian target against the exact stationary
-   oracle, and holds SMOKE training (``train.loop.run``) on the card
-   against the CPU;
+   fused EC-SGHMC and Async SGHMC (s = 1 and 4) on a Gaussian target
+   against their exact stationary oracles, and holds SMOKE training
+   (``train.loop.run``) on the card against the CPU;
 5. serves the K=4-member Bayesian ensemble of qwen3-0.6b at full width
    (random weights from seeded generators) through ``ServeEngine.run`` on
    the paged path with the three serving kernels, greedily and at
@@ -39,7 +42,7 @@ It imports torch, numpy and repro_torch only, and:
    with the dense engine, holds the whole engine on the card against the
    CPU at the SMOKE size, and profiles a short paged run with
    torch.profiler (device time by kernel class, the device's busy share of
-   the unprofiled wall clock, bma_select's device time per tick);
+   the profiled run's wall clock, bma_select's device time per tick);
 6. trains K=4 chains of qwen3-0.6b at full width for 8 EC-SGHMC steps
    through ``train.loop.run`` with the fused kernel, checks the metrics,
    the launch count and the chains' spread, and profiles two more steps;
@@ -57,16 +60,27 @@ It imports torch, numpy and repro_torch only, and:
    against the CPU;
 9. serving meets sampling: ``launch.serve.main`` at full-width qwen3-0.6b
    with K = 4 and overlapped live refresh, then its ensemble path
-   (``[serve-launch]``); the ``[slice]`` engine and trace frozen, with the
-   sync ``ChainRefresher`` and with the overlapped ``RefreshScheduler`` on
-   a side CUDA stream (also once with the engine on a high-priority
+   (``[serve-launch]``); the ``[slice]`` engine and 8 of its trace's
+   requests frozen, with the sync ``ChainRefresher`` and with the
+   overlapped ``RefreshScheduler`` on a side CUDA stream (also once with the engine on a high-priority
    stream), holding each overlapped run's final chain stack against the
    sync one's bit for bit (``[refresh]``), and fed by fused EC-SGHMC
    (``[refresh-ec]``); checkpointed training preempted and
    resumed bit for bit, a timed save/restore, a truncated checkpoint and
    an elastic restore (``[ckpt]``); ``launch.train.main`` at full width
    (``[launch-train]``);
-10. prints one JSON line of the six kernels, the card line, and the result
+10. the paper's own experiments: Fig. 1's seeds as swept runs
+   (``ChainExecutor.run(..., sweep=True)``), each held bitwise against its
+   member run (``[sweep]``); the MLP and ResNet-32 at a small width, fused
+   EC-SGHMC and Async SGHMC with the noise handed in, on the card against
+   the CPU (``[smoke-paper]``); and Fig. 2 at the paper's widths through
+   ``ChainExecutor`` and ``ShardedLoader``: the 2x800 MLP on synthetic
+   MNIST (SGHMC, and K = 6 fused EC-SGHMC and Async SGHMC at s = 1 and 8,
+   2000 steps, ``[paper-mlp]``) and ResNet-32 at width 16 on synthetic
+   CIFAR-10 (SGHMC and fused EC-SGHMC at s = 4, 400 steps,
+   ``[paper-resnet]``), with the predictive and BMA NLL on the test set at
+   every evaluation and the kernel's launches per job;
+11. prints one JSON line of the six kernels, the card line, and the result
    line.
 
 TF32 is off for matmuls and cuDNN (``allow_tf32 = False``), so f32
@@ -85,6 +99,7 @@ import pathlib
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 
@@ -137,13 +152,60 @@ def bound(nbytes: float, flops: float, flops_rate: float) -> tuple[float, str]:
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
+def device_kernels(prof) -> list:
+    """The device-side events (kernels, copies, sets) of a torch.profiler
+    run, aggregated by name, as objects with the fields of ``key_averages``
+    that the phases read: ``key``, ``count`` and ``self_device_time_total``
+    (us).  Read from the profiler's own event list: ``key_averages`` took a
+    minute over the ~350k kernels of a serving profile."""
+    from torch.autograd import DeviceType
+
+    agg = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            count, ns = agg.get(e.name(), (0, 0))
+            agg[e.name()] = (count + 1, ns + e.duration_ns())
+    return [types.SimpleNamespace(key=k, count=c, self_device_time_total=ns / 1e3)
+            for k, (c, ns) in agg.items()]
+
+
+def device_busy(prof) -> tuple[float, int]:
+    """(us of the union of the device events' intervals, streams they ran
+    on) of a torch.profiler run: the time the device was busy, which the
+    summed event times overstate when events on two streams overlap."""
+    from torch.autograd import DeviceType
+
+    spans, streams = [], set()
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            spans.append((e.start_ns(), e.end_ns()))
+            streams.add(e.device_resource_id())
+    busy_ns, lo, hi = 0, None, None
+    for a, b in sorted(spans):
+        if hi is None or a > hi:
+            busy_ns += 0 if hi is None else hi - lo
+            lo, hi = a, b
+        else:
+            hi = max(hi, b)
+    busy_ns += 0 if hi is None else hi - lo
+    return busy_ns / 1e3, len(streams)
+
+
+def kernel_table(kernels, rows: int = 60) -> str:
+    """The ``rows`` kernels with the most device time, one line each."""
+    total = sum(e.self_device_time_total for e in kernels) or 1.0
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:rows]
+    return "\n".join(f"{100 * e.self_device_time_total / total:6.2f}%  "
+                     f"{e.self_device_time_total / 1e3:10.3f} ms  x{e.count:<8d} {e.key}"
+                     for e in top)
+
+
 def device_ms(torch, fn, reps: int = 20, warmup: int = 3, split=None):
     """Device time of one ``fn()``: the summed device time of every kernel
     it launches over ``reps`` calls under torch.profiler, over ``reps``.
     Unlike ``time_ms`` it leaves out the launch from Python.  None when the
     profiler records no device time.  ``split``, a dict, receives the ms
     per call of each kernel, keyed by the name's first word matching it."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
@@ -154,7 +216,7 @@ def device_ms(torch, fn, reps: int = 20, warmup: int = 3, split=None):
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        kernels = device_kernels(prof)
         us = sum(e.self_device_time_total for e in kernels)
         if us > 0:
             if split is not None:
@@ -692,8 +754,9 @@ def kernel_class(name: str) -> str:
 def profile_serving(torch, cfg, model, members, kw, card, paged=True, label="profile"):
     """Where a serving run's time goes: the device kernels of a short
     greedy run (torch.profiler, CUDA activity only) against the wall clock
-    of the same run without the profiler."""
-    from torch.autograd import DeviceType
+    of the same run without the profiler; the busy share is the device
+    time over the profiled run's own wall clock (a lower bound on the
+    unprofiled run's, since the profiler slows the host)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serve.engine import ServeEngine, synthetic_trace
@@ -710,18 +773,19 @@ def profile_serving(torch, cfg, model, members, kw, card, paged=True, label="pro
 
     rep, wall = run()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        run()
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        _, pwall = run()
+    kernels = device_kernels(prof)
     device_us = sum(e.self_device_time_total for e in kernels)
-    (OUT / f"{label.replace('-', '_')}.txt").write_text(
-        prof.key_averages().table(sort_by="self_device_time_total", row_limit=60))
+    busy_us, streams = device_busy(prof)
+    (OUT / f"{label.replace('-', '_')}.txt").write_text(kernel_table(kernels))
     if device_us <= 0:
         log(f"[{label}] torch.profiler recorded no device time: busy share not measured")
         return None
     n = sum(e.count for e in kernels)
     log(f"[{label}] {'paged' if paged else 'dense'} greedy, {len(trace)} requests x 4 tokens "
         f"({len(trace)} admits, {rep.decode_steps} ticks): wall {wall:.3f} s without the "
-        f"profiler, device kernels {device_us / 1e6:.3f} s = {100 * device_us / 1e6 / wall:.1f}% "
+        f"profiler; under it wall {pwall:.3f} s, device kernels {device_us / 1e6:.3f} s summed, "
+        f"busy {busy_us / 1e6:.3f} s on {streams} stream(s) = {100 * busy_us / 1e6 / pwall:.1f}% "
         f"busy, {n} kernels [{card}]")
     classes: dict = {}
     for e in kernels:
@@ -739,8 +803,8 @@ def profile_serving(torch, cfg, model, members, kw, card, paged=True, label="pro
     ticks = max(rep.decode_steps, 1)
     log(f"[{label}]   bma_select: {bma_us / 1e3:.3f} ms of device time over {rep.decode_steps} "
         f"ticks = {bma_us / ticks:.2f} us per tick (one call per tick; all its kernels)")
-    return dict(wall=wall, device_us=device_us, kernels=n, classes=classes,
-                bma_us_per_tick=bma_us / ticks)
+    return dict(wall=wall, profiled_wall=pwall, device_us=device_us, busy_us=busy_us,
+                kernels=n, classes=classes, bma_us_per_tick=bma_us / ticks)
 
 
 def phase_smoke_engine(torch, arch="qwen3-0.6b", paged=True, kernels=SERVING_KERNELS,
@@ -809,6 +873,15 @@ PRECOND_ORACLE_MEAN = [1.5, 1.5, 1.5]
 PRECOND_ORACLE_VAR = [0.49064196194826687, 1.092295488887424, 2.9153315094854095]
 PRECOND_ORACLE_CROSS_COV = [0.08809420088768465, 0.4640232526241377, 1.994740398526435]
 PRECOND_GROUP_D = 2048  # dimensions per group: D = 6144
+
+# The on-card Async SGHMC case (the paper's approach-I baseline): K = 4
+# workers on U = (lam/2)||theta - mu||^2 at s in {1, 4}, the battery's case of
+# tests/test_stationary.py.  The theta variances are those of
+# repro.diagnostics.async_sghmc_stationary, which imports jax;
+# tests/test_torch_paper_samplers.py pins them to it.
+ASYNC_STATIONARY_CASE = dict(eps=0.1, friction=1.0, K=4, lam=1.0, mu=1.5)
+ASYNC_STATIONARY_D = 4096
+ASYNC_ORACLE_VAR = {1: 1.114027386561726, 4: 1.6457419107663855}
 
 SMOKE_TRAIN_ATOL = 1e-5  # card vs CPU after 3 steps: GEMMs sum in another order
 TRAIN_STEPS = 8
@@ -1090,18 +1163,19 @@ def phase_stationary(torch):
 
 def stationary_checks(traj, mean, var, cross):
     """(name, got, want, 3 sigma, ESS) per moment of a (K, T, D) trajectory
-    against the oracle's mean, variance and cross-covariance, as
-    ``phase_stationary`` forms them."""
+    against the oracle's mean, variance and cross-covariance (None: not
+    checked), as ``phase_stationary`` forms them."""
     from repro_torch import diagnostics as diag
 
     K = traj.shape[0]
     ess = float(np.sum(diag.coupled_ess_nd(traj)))
     checks = [("mean", traj.mean(), mean, 3.0 * math.sqrt(var / ess) + 1e-4, ess)]
     dev = traj - mean
-    for name, series, want in (
-            ("var", np.mean(dev * dev, axis=0), var),
-            ("cross-cov", np.mean([dev[i] * dev[j] for i in range(K) for j in range(i + 1, K)],
-                                  axis=0), cross)):
+    moments = [("var", np.mean(dev * dev, axis=0), var)]
+    if cross is not None:  # one chain (Async SGHMC's server) has no pairs
+        moments.append(("cross-cov", np.mean([dev[i] * dev[j] for i in range(K)
+                                              for j in range(i + 1, K)], axis=0), cross))
+    for name, series, want in moments:
         ess_s = float(np.sum(diag.coupled_ess_nd(series[None])))
         checks.append((name, series.mean(), want, 3.0 * math.sqrt(series.var() / ess_s), ess_s))
     return checks
@@ -1215,7 +1289,6 @@ def phase_train(torch, card, adaptive=False):
     train.loop.run in production mode: fused EC-SGHMC (``[train]``), or
     with ``adaptive`` fused scale-adapted EC-SGHMC across its burn-in
     freeze (``[train-adaptive]``); then 2 profiled steps."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch import configs, core
@@ -1290,8 +1363,8 @@ def phase_train(torch, card, adaptive=False):
         if len(set(moving)) != len(moving) or len(set(frozen)) != 1:
             raise AssertionError(f"V̂ did not adapt for {ADAPTIVE_BURNIN} steps and then freeze")
 
-    # where a step's time goes: 2 more steps under the profiler, against
-    # the wall clock of 2 unprofiled steps
+    # where a step's time goes: 2 more steps under the profiler, their
+    # device time over their own wall clock, beside 2 unprofiled steps
     def two_steps(start):
         torch.cuda.synchronize()
         t = time.perf_counter()
@@ -1302,19 +1375,21 @@ def phase_train(torch, card, adaptive=False):
 
     wall2 = two_steps(100)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        two_steps(200)
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        pwall2 = two_steps(200)
+    kernels = device_kernels(prof)
     device_us = sum(e.self_device_time_total for e in kernels)
-    (OUT / f"{label.replace('-', '_')}_profile.txt").write_text(
-        prof.key_averages().table(sort_by="self_device_time_total", row_limit=60))
+    busy_us, streams = device_busy(prof)
+    (OUT / f"{label.replace('-', '_')}_profile.txt").write_text(kernel_table(kernels))
     split = {}
     if device_us > 0:
         for e in kernels:
             lab = next((lab for lab, keys in TRAIN_CLASSES if any(k in e.key for k in keys)),
                        "other elementwise and reductions")
             split[lab] = split.get(lab, 0.0) + e.self_device_time_total
-        log(f"[{label}-profile] 2 steps: wall {wall2:.3f} s without the profiler, device kernels "
-            f"{device_us / 1e6:.3f} s = {100 * device_us / 1e6 / wall2:.1f}% busy, "
+        log(f"[{label}-profile] 2 steps: wall {wall2:.3f} s without the profiler; under it wall "
+            f"{pwall2:.3f} s, device kernels {device_us / 1e6:.3f} s summed, busy "
+            f"{busy_us / 1e6:.3f} s on {streams} stream(s) = "
+            f"{100 * busy_us / 1e6 / pwall2:.1f}% busy, "
             f"{sum(e.count for e in kernels)} kernels [{card}]")
         for lab, us in sorted(split.items(), key=lambda kv: -kv[1]):
             log(f"[{label}-profile]   {100 * us / device_us:5.1f}%  {us / 1e3:9.3f} ms  {lab}")
@@ -1332,13 +1407,508 @@ def phase_train(torch, card, adaptive=False):
 
 
 # ---------------------------------------------------------------------------
+# the paper's experiments: Async SGHMC, swept runs, the MLP and ResNet-32
+# posteriors of Fig. 1 and Fig. 2
+# ---------------------------------------------------------------------------
+
+PAPER_K = 6  # the paper's threads: EC chains or Async workers (Fig. 2)
+PAPER_LR, PAPER_BETA = 3e-7, 0.9  # benchmarks/posterior_driver.py's sgd_map(lr, beta)
+PAPER_PRIOR = 1e-5  # Gaussian prior lambda (the paper's MNIST value)
+PAPER_BURNIN = 0.25  # share of the steps before the BMA starts accumulating
+MLP_TRAIN, MLP_TEST, MLP_BATCH = 60_000, 2_000, 100
+MLP_STEPS, MLP_EVAL = 2000, 20
+RESNET_WIDTH = 16
+RESNET_TRAIN, RESNET_TEST, RESNET_BATCH = 50_000, 1_000, 50
+RESNET_STEPS, RESNET_EVAL = 400, 80  # the paper runs 2000 steps: cut for the call's time
+FIG1_STEPS, FIG1_SG_SEEDS, FIG1_EC_SEEDS = 600, tuple(range(8)), (100, 101)
+SMOKE_PAPER_STEPS, SMOKE_PAPER_N, SMOKE_PAPER_BATCH = 12, 2000, 16
+
+
+def sgd_map(lr: float, beta: float = 0.9):
+    """SGD-with-momentum (lr, beta) as SGHMC (step size, friction):
+    eps = sqrt(lr (1 - beta)), V = (1 - beta) / eps
+    (benchmarks/posterior_driver.py::sgd_map)."""
+    eps = math.sqrt(lr * (1.0 - beta))
+    return eps, (1.0 - beta) / eps
+
+
+def paper_leaf_shapes():
+    """{model: [leaf shape, ...]} of the 2x800 MLP and ResNet-32 at width 16,
+    in flatten order."""
+    from repro_torch.models import mlp, resnet, tree_leaves
+
+    return {"mlp": [s.shape for s in tree_leaves(mlp.param_specs())],
+            "resnet32": [s.shape for s in tree_leaves(resnet.param_specs(width=RESNET_WIDTH))]}
+
+
+def phase_fused_ec_small(torch, ops, ref):
+    """The fused kernel at every leaf shape of the paper's two models, K = 6,
+    f32: bitwise against its plain version in parity mode (bits from a
+    seeded generator) and in Philox mode (the plain version given the
+    kernel's Philox bits); N = 10 and the other N that are not multiples
+    of 4 take the single-element path.  Each shape's time per launch by
+    CUDA events and by device time, beside its byte bound; then per step
+    of each model (a launch per leaf)."""
+    import repro_torch.kernels.fused_ecsghmc as fe
+
+    K = PAPER_K
+    g = torch.Generator(device="cuda").manual_seed(19)
+    scalars = ref.ec_scalars(EC_HYPER["eps"], EC_HYPER["friction"], 1.0 / EC_HYPER["mass"],
+                             EC_HYPER["alpha"], EC_HYPER["sigma_p"])
+    models = paper_leaf_shapes()
+    rows, max_err = {}, 0.0
+    for shape in sorted({s for v in models.values() for s in v}, key=math.prod):
+        N = math.prod(shape)
+        o = fused_operands(torch, g, (K,) + shape, torch.float32)
+        args = (o["theta"], o["p"], o["g"], o["c"])
+        plain = lambda bits: ref.fused_ec_update(*args, *bits, scalars=scalars,
+                                                 stochastic_round=True)
+        h1, h2 = ref.philox_bits(EC_KEY, 3, 9, K * N)
+        philox = tuple(torch.from_numpy(h.view(np.int32)).cuda().view((K,) + shape)
+                       for h in (h1, h2))
+        pairs = [(ops.fused_ec_update(*args, bits=o["bits"], **EC_HYPER), plain(o["bits"])),
+                 (ops.fused_ec_update(*args, seed=EC_KEY, leaf=3, step=9, **EC_HYPER),
+                  plain(philox))]
+        torch.cuda.synchronize()
+        same = [torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]) for a, b in pairs]
+        err = max((x - y).abs().max().item() for a, b in pairs for x, y in zip(a, b))
+        t_out = torch.empty_like(o["theta"])
+        launch = lambda: fe.launch(*args, None, None, t_out, o["p"], K=K, N=N, seed=EC_KEY,
+                                   leaf=0, step=0, scalars=scalars, stochastic_round=True)
+        ms, dev = time_ms(torch, launch), device_ms(torch, launch)
+        b_ms, b_by = bound(ec_bytes(K, N), 0.0, F32_FLOPS_PER_S)
+        path = "4-wide" if fe._vec(N, *args, t_out) else "1-wide"
+        log(f"[fused_ec] paper leaf {shape} K={K} (N={N}, {path} path) f32: bitwise equal to the "
+            f"plain version in parity mode {same[0]}, Philox mode {same[1]} (max abs err "
+            f"{err:.3e}); {ms:.4f} ms by events, device {fmt_ms(dev)}, bound {b_ms:.6f} ms "
+            f"({b_by})")
+        if not all(same):
+            raise AssertionError(f"fused_ec_update at the paper leaf {shape}: not bitwise equal "
+                                 "to its plain version")
+        max_err = max(max_err, err)
+        rows[shape] = dict(shape=shape, N=N, path=path, ms=ms, device_ms=dev, bound_ms=b_ms)
+        del o, args, pairs, philox, t_out
+    steps = {}
+    for model, shapes in models.items():
+        tot = {k: sum(rows[s][k] or 0.0 for s in shapes) for k in ("ms", "device_ms", "bound_ms")}
+        steps[model] = dict(tot, leaves=len(shapes))
+        log(f"[fused_ec] one EC step of the paper's {model}, K={K}: {len(shapes)} launches, "
+            f"{tot['ms']:.4f} ms by events, device {tot['device_ms']:.4f} ms, byte bound "
+            f"{tot['bound_ms']:.4f} ms: launch-bound")
+    torch.cuda.empty_cache()
+    return dict(rows=list(rows.values()), steps=steps, err=max_err)
+
+
+def phase_stationary_async(torch):
+    """Async SGHMC (K = 4 workers, the paper's approach-I baseline) on the
+    Gaussian target at s = 1 and 4, through the port's rollout, against the
+    exact delay-augmented oracle at 3 sigma: the mean by the ESS of theta,
+    the variance about the oracle's mean by the ESS of its own series."""
+    from repro_torch import core
+    from repro_torch.core import rng
+    from repro_torch.run import rollout
+
+    c = ASYNC_STATIONARY_CASE
+    bad, out = [], {}
+    for s, var in ASYNC_ORACLE_VAR.items():
+        sampler = core.async_sghmc(step_size=c["eps"], num_workers=c["K"], friction=c["friction"],
+                                   sync_every=s)
+        p0 = torch.full((ASYNC_STATIONARY_D,), c["mu"] + 1.0, device="cuda")
+        t0 = time.perf_counter()
+        res = rollout(sampler, lambda th: c["lam"] * (th - c["mu"]), p0,
+                      num_steps=STATIONARY_STEPS, keys=rng.split(rng.key(41 + s), STATIONARY_STEPS),
+                      moments=False, chunk_steps=1000)
+        wall = time.perf_counter() - t0
+        traj = res.trace.cpu().numpy()[STATIONARY_BURN:][None].astype(np.float64)  # (1, T, D)
+        checks = stationary_checks(traj, c["mu"], var, None)
+        log(f"[stationary-async] Async SGHMC K={c['K']} workers, s={s}, "
+            f"D={ASYNC_STATIONARY_D}, eps={c['eps']}, {STATIONARY_STEPS} steps (burn-in "
+            f"{STATIONARY_BURN}) in {wall:.2f} s: "
+            + "; ".join(f"{n} {got:.6f} vs oracle {want:.6f} (3 sigma {tol:.2e}, ESS {e:.0f})"
+                        for n, got, want, tol, e in checks))
+        bad += [f"s={s} {n}" for n, got, want, tol, _ in checks if not abs(got - want) < tol]
+        out[s] = dict(wall=wall, checks=checks)
+    if bad:
+        raise AssertionError(f"on-card Async SGHMC {bad} miss the oracle")
+    return out
+
+
+def phase_sweep(torch):
+    """Fig. 1 as swept runs: the 2-D Gaussian N((2, -1), I) from (-2, 3),
+    600 steps; SGHMC (eps 1e-2, V 1) over 8 seeds and fused EC-SGHMC (K = 4,
+    alpha 1, V = C = 1, s 1, eq6 noise) over 2 seeds, each through
+    ``ChainExecutor.run(..., sweep=True)``, every swept run held bitwise
+    against its member run on the card.  Records benchmarks/fig1's worst
+    mean NLL over the first 150 steps and the late cross-run / cross-chain
+    spread."""
+    from repro_torch import core
+    from repro_torch import diagnostics as diag
+    from repro_torch.core import rng
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.run import ChainExecutor, stack_runs
+
+    mu = torch.tensor([2.0, -1.0], device="cuda")
+    start = torch.tensor([-2.0, 3.0], device="cuda")
+    nll = lambda x: 0.5 * np.sum((x - np.array([2.0, -1.0])) ** 2, axis=-1)
+    K = 4
+
+    def swept(label, make, p1, seeds):
+        keys = [rng.split(rng.key(s), FIG1_STEPS) for s in seeds]
+        ex = ChainExecutor(sampler=make(), grad_fn=lambda t, _b: t - mu, trace_fn=lambda p: p,
+                           chunk_steps=FIG1_STEPS, key_mode="keys")
+        p0 = p1[None].repeat((len(seeds),) + (1,) * p1.ndim)
+        st0 = stack_runs([make().init(p0[i]) for i in range(len(seeds))])
+        torch.cuda.synchronize()
+        reset_launches()
+        res = ex.run(p0, st0, num_steps=FIG1_STEPS, keys=keys, sweep=True)
+        n_launch = launches["fused_ec_update"]
+        members = [ChainExecutor(sampler=make(), grad_fn=lambda t, _b: t - mu,
+                                 trace_fn=lambda p: p, chunk_steps=FIG1_STEPS, key_mode="keys")
+                   .run(p1.clone(), make().init(p1.clone()), num_steps=FIG1_STEPS, keys=k).trace
+                   for k in keys]
+        same = all(torch.equal(res.trace[i], m) for i, m in enumerate(members))
+        log(f"[sweep] {label}: {len(seeds)} runs x {FIG1_STEPS} steps swept in {res.wall_s:.3f} s "
+            f"({1e6 * res.wall_s / (FIG1_STEPS * len(seeds)):.1f} us per run step); swept == "
+            f"per-member runs bitwise: {same}; fused_ec_update launches {n_launch}")
+        if not same:
+            raise AssertionError(f"[sweep] {label}: the swept runs differ from their member runs")
+        return res.trace.cpu().numpy(), res.wall_s, n_launch
+
+    t_sg, w_sg, _ = swept("SGHMC", lambda: core.sghmc(step_size=1e-2, friction=1.0), start,
+                          FIG1_SG_SEEDS)
+    ec = lambda: core.ec_sghmc(step_size=1e-2, alpha=1.0, friction=1.0, center_friction=1.0,
+                               sync_every=1, noise_convention="eq6", fused=True)
+    t_ec, w_ec, n_ec = swept("EC-SGHMC K=4 fused", ec, start[None].repeat(K, 1), FIG1_EC_SEEDS)
+    if n_ec != FIG1_STEPS * len(FIG1_EC_SEEDS):
+        raise AssertionError(f"[sweep] fused_ec_update launched {n_ec} times, not "
+                             f"{FIG1_STEPS * len(FIG1_EC_SEEDS)}")
+    sg_worst = float(max(nll(t_sg[r, :150]).mean() for r in range(len(FIG1_SG_SEEDS))))
+    ec_worst = float(max(nll(t_ec[g, :150, i]).mean() for g in range(len(FIG1_EC_SEEDS))
+                         for i in range(K)))
+    sg_spread = float(diag.cross_chain_spread(torch.from_numpy(t_sg[:, 400:])))
+    ec_spread = float(diag.cross_chain_spread(torch.from_numpy(np.moveaxis(t_ec[0, 400:], 1, 0))))
+    finite = np.isfinite(t_sg).all() and np.isfinite(t_ec).all()
+    log(f"[sweep] Fig. 1: worst mean NLL over the first 150 steps SGHMC {sg_worst:.3f} (worst of "
+        f"{len(FIG1_SG_SEEDS)} runs), EC-SGHMC {ec_worst:.3f} (worst of "
+        f"{len(FIG1_EC_SEEDS) * K} chains); late spread across SGHMC runs {sg_spread:.4f}, across "
+        f"EC chains {ec_spread:.4f}; the paper's claim (EC coherent and faster to the mode): "
+        f"{'held' if ec_worst < sg_worst and ec_spread < sg_spread else 'not held'} (recorded, "
+        "not asserted)")
+    if not finite:
+        raise AssertionError("[sweep] non-finite trajectory")
+    return dict(sg_worst=sg_worst, ec_worst=ec_worst, sg_spread=sg_spread, ec_spread=ec_spread,
+                sg_wall=w_sg, ec_wall=w_ec, launches=n_ec)
+
+
+def noise_sampler(inner, noises):
+    """``inner`` with step t's noise taken from ``noises[t]`` (the draws a
+    card-against-CPU check hands both sides)."""
+    from repro_torch.core import Sampler
+
+    return Sampler(inner.init,
+                        lambda g, st, p, rng=None: inner.update(g, st, p, None,
+                                                                noise=noises[st.step]),
+                        inner.grad_targets, inner.stats)
+
+
+def paper_samplers(core, job, eps, fric):
+    """The samplers of benchmarks/fig2_*.py: ``sghmc``, ``ec_s<s>`` (K = 6
+    fused EC-SGHMC, eq4 noise, no center noise in p) and ``async_s<s>``
+    (6 workers).  Returns (sampler, chains, workers)."""
+    if job == "sghmc":
+        return core.sghmc(step_size=eps, friction=fric), 1, 1
+    s = int(job.split("_s")[1])
+    if job.startswith("ec"):
+        return core.ec_sghmc(step_size=eps, friction=fric, center_friction=fric, alpha=1.0,
+                             sync_every=s, noise_convention="eq4", center_noise_in_p=False,
+                             fused=True), PAPER_K, PAPER_K
+    return core.async_sghmc(step_size=eps, friction=fric, num_workers=PAPER_K,
+                            sync_every=s), 1, PAPER_K
+
+
+def phase_smoke_paper(torch):
+    """The paper's two models at a small width (MLP hidden 32, ResNet-32 at
+    width 4), card against CPU: the same params, data, batches and noise
+    through ``ChainExecutor`` and ``ShardedLoader``, 12 steps of fused
+    EC-SGHMC in parity-bits mode (K = 6) and of Async SGHMC (6 workers,
+    s = 2, the normals handed in), within [smoke-train]'s atol."""
+    from repro_torch import core
+    from repro_torch.core import potential
+    from repro_torch.data import ShardedLoader, synthetic_cifar10, synthetic_mnist
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.models import init_params, mlp, resnet, tree_leaves, tree_map
+    from repro_torch.run import ChainExecutor
+
+    eps, fric = sgd_map(PAPER_LR, PAPER_BETA)
+    K, steps = PAPER_K, SMOKE_PAPER_STEPS
+    models = {"mlp": (mlp, mlp.param_specs(hidden=32), synthetic_mnist),
+              "resnet": (resnet, resnet.param_specs(width=4), synthetic_cifar10)}
+    out = {}
+    bs = SMOKE_PAPER_BATCH
+    for name, (mod, specs, data_fn) in models.items():
+        x, y = data_fn(SMOKE_PAPER_N, seed=3, device="cpu")
+        p1 = init_params(specs, torch.Generator().manual_seed(21), device="cpu")
+        for job in ("ec_s2", "async_s2"):
+            gen = torch.Generator().manual_seed(22)
+            if job.startswith("ec"):
+                base = tree_map(lambda v: v[None].repeat((K,) + (1,) * v.ndim), p1)
+                noises = [{"p": tree_map(lambda v: tuple(
+                    torch.randint(-2**31, 2**31 - 1, v.shape, generator=gen, dtype=torch.int32)
+                    for _ in range(2)), base),
+                           "r": tree_map(lambda v: torch.randn(v.shape, generator=gen), p1)}
+                          for _ in range(steps)]
+            else:
+                base = p1
+                noises = [tree_map(lambda v: torch.randn(v.shape, generator=gen), p1)
+                          for _ in range(steps)]
+            res = {}
+            for dev in ("cpu", "cuda"):
+                to = lambda t: tree_map(
+                    lambda v: (tuple(b.to(dev) for b in v) if isinstance(v, tuple)
+                               else v.to(dev, copy=True)), t)
+                samp, _, workers = paper_samplers(core, job, eps, fric)
+                params = to(base)
+                pot = potential.make_potential(mod.nll_fn, n_data=SMOKE_PAPER_N,
+                                               prior=potential.gaussian_prior(PAPER_PRIOR))
+                loader = ShardedLoader(x, y, bs, workers, seed=4, device=dev)
+                ex = ChainExecutor(sampler=noise_sampler(samp, [to(n) for n in noises]),
+                                   grad_fn=potential.chainwise(pot).grad,
+                                   batch_fn=loader.batch,
+                                   chunk_steps=4, key_mode="keys")
+                reset_launches()
+                res[dev] = ex.run(params, samp.init(params), num_steps=steps,
+                                  keys=list(range(steps)))
+                if dev == "cuda" and job.startswith("ec"):
+                    want = steps * len(tree_leaves(params))
+                    if launches["fused_ec_update"] != want:
+                        raise AssertionError(f"[smoke-paper] {name} {job}: fused_ec_update "
+                                             f"launched {launches['fused_ec_update']}, not {want}")
+            fields = ("momentum", "center") if job.startswith("ec") else ("momentum", "snapshots")
+            gap = lambda card_tree, cpu_tree: max(
+                (a.cpu() - b).abs().max().item()
+                for a, b in zip(tree_leaves(card_tree), tree_leaves(cpu_tree)))
+            diffs = {f: gap(getattr(res["cuda"].state, f), getattr(res["cpu"].state, f))
+                     for f in fields}
+            diffs["params"] = gap(res["cuda"].params, res["cpu"].params)
+            log(f"[smoke-paper] {name} {job}, {steps} steps, noise handed in: card vs CPU max diff "
+                + ", ".join(f"{f} {d:.3e}" for f, d in diffs.items())
+                + f" (atol {SMOKE_TRAIN_ATOL})")
+            if max(diffs.values()) > SMOKE_TRAIN_ATOL:
+                raise AssertionError(f"[smoke-paper] {name} {job}: the card disagrees with the CPU")
+            out[f"{name}/{job}"] = diffs
+    return out
+
+
+def posterior_run(torch, mod, params, sampler, chains, workers, data, *, n_data, batch, steps,
+                  eval_every, seed):
+    """One job of the paper's Fig. 2 driver (benchmarks/posterior_driver.py's
+    run_sampling, not ported as a file): the sampler through
+    ``ChainExecutor`` in chunks of ``eval_every`` steps, each chain or worker
+    drawing its own minibatch from ``ShardedLoader``, the chains' or workers'
+    gradients in one ``torch.func.vmap`` pass (the reference's ``jax.vmap``); at every chunk
+    boundary the predictive NLL on the test set of the current chains'
+    mixture, and the BMA NLL of every evaluation after the burn-in.  Returns
+    (curve, the step-0 NLL, wall s, evaluation s, RunResult, the executor)."""
+    from repro_torch.core import potential
+    from repro_torch.data import ShardedLoader
+    from repro_torch.models import tree_map
+    from repro_torch.run import ChainExecutor
+
+    (xtr, ytr), (xt, yt) = data
+    pot = potential.make_potential(mod.nll_fn, n_data=n_data,
+                                   prior=potential.gaussian_prior(PAPER_PRIOR))
+    grad_fn = potential.chainwise(pot).grad if workers > 1 else pot.grad
+    loader = ShardedLoader(xtr, ytr, batch, workers, seed=seed, device=xtr.device)
+    gold = yt.long()[:, None]
+
+    def chain_probs(p):
+        members = [tree_map(lambda v: v[k], p) for k in range(chains)] if chains > 1 else [p]
+        with torch.no_grad():
+            return sum(torch.softmax(mod.apply(m, xt).float(), -1) for m in members)
+
+    def predictive_nll(prob_sum, n):
+        logp = torch.log(torch.clamp(prob_sum / n, min=1e-12))
+        return -torch.mean(torch.gather(logp, -1, gold)[:, 0]).item()
+
+    burnin = int(steps * PAPER_BURNIN)
+    nll0 = predictive_nll(chain_probs(params), chains)
+    acc = {"sum": None, "n": 0, "eval_s": 0.0}
+    curve = []
+
+    def on_chunk(step_end, p, st, outs):
+        t0 = time.perf_counter()
+        cur = chain_probs(p)
+        if step_end - 1 >= burnin:
+            acc["sum"] = cur if acc["sum"] is None else acc["sum"] + cur
+            acc["n"] += chains
+        now = predictive_nll(cur, chains)
+        bma = predictive_nll(acc["sum"], acc["n"]) if acc["n"] else now
+        curve.append({"step": step_end, "nll": now, "nll_bma": bma})
+        acc["eval_s"] += time.perf_counter() - t0
+
+    ex = ChainExecutor(sampler=sampler, grad_fn=grad_fn, batch_fn=loader.batch,
+                       chunk_steps=eval_every, key_mode="fold")
+    res = ex.run(params, sampler.init(params), num_steps=steps, key=seed + 1, on_chunk=on_chunk)
+    return curve, nll0, res.wall_s, acc["eval_s"], res, ex
+
+
+PAPER_CLASSES = (  # (label, substrings of a device kernel's name), first match wins
+    ("fused EC kernel", ("ec_update",)),
+    ("convolution (cuDNN)", ("conv", "cudnn", "fprop", "dgrad", "wgrad", "winograd")),
+    ("GEMM", ("gemm", "nvjet", "cutlass", "cublas", "splitKreduce", "xmma")),
+    ("copies and casts", ("copy",)),
+)
+PAPER_PROFILE_STEPS = 20
+
+
+def profile_paper_steps(torch, label, job, ex, res, steps, card):
+    """``PAPER_PROFILE_STEPS`` more steps of a finished job, once on the wall
+    clock and once under torch.profiler: device time by kernel class and
+    the device's busy share of the profiled window's own wall clock (the
+    profiler slows the host, so the share is a lower bound on the
+    unprofiled run's)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def more(start):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ex.run(res.params, res.state, num_steps=PAPER_PROFILE_STEPS, key=7, start_step=start)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    wall = more(steps)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        pwall = more(steps + PAPER_PROFILE_STEPS)
+    kernels = device_kernels(prof)
+    device_us = sum(e.self_device_time_total for e in kernels)
+    busy_us, streams = device_busy(prof)
+    if device_us <= 0:
+        log(f"[{label}-profile] torch.profiler recorded no device time: busy share not measured")
+        return None
+    split = {}
+    for e in kernels:
+        lab = next((lab for lab, keys in PAPER_CLASSES if any(k in e.key for k in keys)),
+                   "other elementwise and reductions")
+        split[lab] = split.get(lab, 0.0) + e.self_device_time_total / 1e3
+    n = sum(e.count for e in kernels)
+    log(f"[{label}-profile] {job}, {PAPER_PROFILE_STEPS} steps: wall {wall:.3f} s without the "
+        f"profiler ({1e3 * wall / PAPER_PROFILE_STEPS:.2f} ms/step); under it wall {pwall:.3f} s, "
+        f"device kernels {device_us / 1e6:.4f} s summed, busy {busy_us / 1e6:.4f} s on {streams} "
+        f"stream(s) = {100 * busy_us / 1e6 / pwall:.1f}% busy, {n} kernels "
+        f"({n / PAPER_PROFILE_STEPS:.0f} per step) [{card}]")
+    for lab, ms in sorted(split.items(), key=lambda kv: -kv[1]):
+        log(f"[{label}-profile]   {100 * ms * 1e3 / device_us:5.1f}%  {ms:9.3f} ms  {lab}")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
+        log(f"[{label}-profile]   {100 * e.self_device_time_total / device_us:5.1f}%  "
+            f"{e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<6d} {e.key[:80]}")
+    return dict(wall=wall, profiled_wall=pwall, device_ms=device_us / 1e3, busy_ms=busy_us / 1e3,
+                kernels=n, split=split)
+
+
+def phase_paper(torch, card, label, mod, specs, data_fn, n_train, n_test, batch, jobs, steps,
+                eval_every, profile_job):
+    """One Fig. 2 experiment at the paper's size: each job from the same
+    seeded init (chains start equal, as the reference's driver starts
+    them), on the same synthetic data.  Checks every NLL finite, each
+    job's final BMA NLL below its step-0 NLL, and ``fused_ec_update``'s
+    launches (a leaf per step) on the EC jobs.  Records s/step and the
+    final BMA NLLs, and profiles a few more steps of ``profile_job``."""
+    from repro_torch import core
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.models import init_params, tree_leaves, tree_map
+
+    eps, fric = sgd_map(PAPER_LR, PAPER_BETA)
+    reset_peak(torch)
+    x, y = data_fn(n_train + n_test, seed=0, device="cuda")
+    data = ((x[:n_train], y[:n_train]), (x[n_train:], y[n_train:]))
+    p1 = init_params(specs, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    n_params = sum(v.numel() for v in tree_leaves(p1))
+    log(f"[{label}] {n_params} parameters, {len(tree_leaves(p1))} leaves; synthetic data "
+        f"{tuple(x.shape)} ({n_train} train, {n_test} test); batch {batch} per chain or worker, "
+        f"eps {eps:.6g}, V {fric:.6g} (sgd_map lr {PAPER_LR}, beta {PAPER_BETA}), prior "
+        f"{PAPER_PRIOR}, {steps} steps, evaluated every {eval_every}")
+    out, counts = {}, {}
+    for job in jobs:
+        sampler, chains, workers = paper_samplers(core, job, eps, fric)
+        params = (tree_map(lambda v: v[None].repeat((chains,) + (1,) * v.ndim), p1) if chains > 1
+                  else tree_map(torch.clone, p1))
+        torch.cuda.synchronize()
+        reset_launches()
+        curve, nll0, wall, eval_s, res, ex = posterior_run(
+            torch, mod, params, sampler, chains, workers, data, n_data=n_train, batch=batch,
+            steps=steps, eval_every=eval_every, seed=1)
+        counts[job] = launches["fused_ec_update"]
+        final = curve[-1]
+        per_step = (wall - eval_s) / steps
+        log(f"[{label}] {job}: step-0 NLL {nll0:.4f}; NLL at "
+            + ", ".join(f"{c['step']}: {c['nll']:.4f}" for c in curve[:: max(len(curve) // 5, 1)])
+            + f"; final {final['nll']:.4f}, BMA {final['nll_bma']:.4f}; {wall:.2f} s "
+            f"({eval_s:.2f} s evaluating), {per_step * 1e3:.2f} ms/step; fused_ec_update "
+            f"launches {counts[job]} [{card}]")
+        nlls = [v for c in curve for v in (c["nll"], c["nll_bma"])]
+        if not all(math.isfinite(v) for v in nlls):
+            raise AssertionError(f"[{label}] {job}: a non-finite NLL")
+        if not final["nll_bma"] < nll0:
+            raise AssertionError(f"[{label}] {job}: final BMA NLL {final['nll_bma']} is not below "
+                                 f"the step-0 NLL {nll0}")
+        want = steps * len(tree_leaves(p1)) if job.startswith("ec") else 0
+        if counts[job] != want:
+            raise AssertionError(f"[{label}] {job}: fused_ec_update launched {counts[job]} "
+                                 f"times, not {want}")
+        out[job] = dict(nll0=nll0, final=final, per_step_s=per_step, wall=wall, eval_s=eval_s,
+                        curve=curve)
+        if job == profile_job:
+            out[job]["profile"] = profile_paper_steps(torch, label, job, ex, res, steps, card)
+        del params, sampler, res, ex
+        gc.collect()
+    finals = {j: o["final"]["nll_bma"] for j, o in out.items()}
+    if "async_s8" in out:
+        held = (finals["ec_s8"] - finals["ec_s1"]) <= (finals["async_s8"] - finals["async_s1"])
+        log(f"[{label}] final BMA NLL {finals}; the paper's claim, EC-SGHMC degrades less than "
+            f"Async SGHMC from s=1 to s=8: {'held' if held else 'not held'} (ec_s8 "
+            f"{finals['ec_s8']:.4f} vs async_s8 {finals['async_s8']:.4f}; recorded, not asserted)")
+    else:
+        log(f"[{label}] final BMA NLL {finals}; EC-SGHMC below SGHMC: "
+            f"{finals['ec_s4'] < finals['sghmc']} (recorded, not asserted)")
+    log(f"[{label}] peak device memory {gib(torch.cuda.max_memory_allocated())}")
+    del x, y, data, p1
+    reset_peak(torch)
+    return counts, out
+
+
+def phase_paper_mlp(torch, card):
+    from repro_torch.data import synthetic_mnist
+    from repro_torch.models import mlp
+
+    return phase_paper(torch, card, "paper-mlp", mlp, mlp.param_specs(), synthetic_mnist,
+                       MLP_TRAIN, MLP_TEST, MLP_BATCH,
+                       ("sghmc", "ec_s1", "ec_s8", "async_s1", "async_s8"), MLP_STEPS, MLP_EVAL,
+                       "ec_s8")
+
+
+def phase_paper_resnet(torch, card):
+    from repro_torch.data import synthetic_cifar10
+    from repro_torch.models import resnet
+
+    return phase_paper(torch, card, "paper-resnet", resnet, resnet.param_specs(width=RESNET_WIDTH),
+                       synthetic_cifar10, RESNET_TRAIN, RESNET_TEST, RESNET_BATCH,
+                       ("sghmc", "ec_s4"), RESNET_STEPS, RESNET_EVAL, "ec_s4")
+
+
+# ---------------------------------------------------------------------------
 # serving meets sampling: live refresh, the launchers, checkpointed training
 # ---------------------------------------------------------------------------
 
 QWEN_V = 151936
 REFRESH_EVERY = 8  # decode ticks per sampler chunk of 16 steps (launch/serve.py's chunk)
 REFRESH_TOTAL_STEPS = 128  # 8 proposals: both refreshers exhaust within or just after a run
-REFRESH_PAIRS = 2  # back-to-back (frozen, overlapped) pairs, as DESIGN.md section 9 pairs them
+# the refresh phases and the serve launcher serve 8 requests of the [slice]
+# trace's 16 (its first 8 when drawn with the same seed): the script's time
+# budget
+REFRESH_REQUESTS = 8
+# back-to-back (frozen, overlapped) pairs, as DESIGN.md section 9 pairs them;
+# one pair keeps the script's phases within their time budget
+REFRESH_PAIRS = 1
 EC_REFRESH_STEP = 1e-3  # EC-SGHMC over the bootstrap prior: a chunk spreads the chains past the gate
 CKPT_LAYERS = 4  # [ckpt]: qwen3-0.6b widths, depth cut from 28 so one checkpoint is ~10 GB
 # a checkpoint every 4 steps, not 2: two ~10 GB saves instead of four, each
@@ -1386,7 +1956,7 @@ def phase_serve_launch(torch, card):
     from repro_torch.launch import serve as serve_launch
 
     common = ["--arch", "qwen3-0.6b", "--ensemble", "4", "--prompt-len", "128", "--gen", "32"]
-    engine_args = common + ["--engine", "--slots", "8", "--requests", "16",
+    engine_args = common + ["--engine", "--slots", "8", "--requests", str(REFRESH_REQUESTS),
                             "--refresh-every", str(REFRESH_EVERY)]
     reset_peak(torch)
     reset_launches()
@@ -1395,7 +1965,7 @@ def phase_serve_launch(torch, card):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts, peak = dict(launches), torch.cuda.max_memory_allocated()
-    check_served(rep, 16, 32, QWEN_V, "serve-launch")
+    check_served(rep, REFRESH_REQUESTS, 32, QWEN_V, "serve-launch")
     rf = rep.refresher
     h = check_health(rep, "serve-launch")
     pct = rep.latency_percentiles()
@@ -1433,7 +2003,8 @@ def phase_serve_launch(torch, card):
 
 def refresh_setup(torch, card):
     """What ``[refresh]`` and ``[refresh-ec]`` share: the qwen3-0.6b paged
-    engine and the ``[slice]`` trace, one bootstrap ensemble (kept on the
+    engine and the first ``REFRESH_REQUESTS`` requests of the ``[slice]``
+    trace, one bootstrap ensemble (kept on the
     host, so no run holds a spare 9.6 GB stack on the card) and ``serve``,
     which serves the trace from that ensemble, frozen or with a refresher
     as ``launch/serve.py::_live_refresher`` builds it (with a finite
@@ -1459,7 +2030,8 @@ def refresh_setup(torch, card):
         f"{boot_s:.2f} s, {res.steps_per_s:.1f} steps/s, peak {gib(boot_peak)} [{card}]")
     host_members = tree_map(lambda a: a.cpu(), members)
     del members, res
-    trace = synthetic_trace(16, vocab_size=QWEN_V, prompt_lens=(64, 128), max_new=32, seed=0)
+    trace = synthetic_trace(REFRESH_REQUESTS, vocab_size=QWEN_V, prompt_lens=(64, 128),
+                            max_new=32, seed=0)
     kw = dict(num_slots=8, max_seq=128 + 32, paged=True, device="cuda")
 
     def serve(label, mode=None, sampler=None, tag="refresh", high_priority=False):
@@ -1526,7 +2098,7 @@ def refresh_setup(torch, card):
 
 
 def phase_refresh(torch, card, setup):
-    """The ``[slice]`` paged engine and trace with the sync
+    """The ``[slice]`` paged engine and 8 of its trace's requests with the sync
     ``ChainRefresher``, then ``REFRESH_PAIRS`` back-to-back (frozen,
     overlapped ``RefreshScheduler``) pairs, over the launcher's SGLD on the
     bootstrap prior, then one overlapped run with the engine on a stream of
@@ -1851,9 +2423,11 @@ def main() -> int:
     bma256k = timed("bma256k", phase_bma, torch, ops, ref, V=256000, label="bma256k", seed=18)
     rglru = timed("rglru", phase_rglru, torch, ops, ref)
     fused = timed("fused_ec", phase_fused_ec, torch, ops, ref, qwen)
+    fused["paper"] = timed("fused_ec-paper", phase_fused_ec_small, torch, ops, ref)
     precond = timed("fused_precond", phase_fused_precond, torch, ops, ref, qwen)
     timed("philox", phase_philox, torch, ops, ref, qwen)
     timed("stationary", phase_stationary, torch)
+    stationary_async = timed("stationary-async", phase_stationary_async, torch)
     timed("stationary-precond", phase_stationary_precond, torch)
     timed("smoke-engine", phase_smoke_engine, torch)
     timed("smoke-train", phase_smoke_train, torch)
@@ -1875,6 +2449,10 @@ def main() -> int:
     del setup
     ckpt = timed("ckpt", phase_ckpt, torch, card)
     launch_train = timed("launch-train", phase_launch_train, torch, card)
+    sweep = timed("sweep", phase_sweep, torch)
+    smoke_paper = timed("smoke-paper", phase_smoke_paper, torch)
+    mlp_counts, paper_mlp = timed("paper-mlp", phase_paper_mlp, torch, card)
+    resnet_counts, paper_resnet = timed("paper-resnet", phase_paper_resnet, torch, card)
 
     f128 = next(r for r in flash if r["S"] == 128 and r["softcap"] is None)
     bg = next(r for r in bma if r["mode"] == "probs" and r["T"] == 0.0)
@@ -1898,6 +2476,12 @@ def main() -> int:
          "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
         for n, src, rep, r in entries
     ]
+    # the fused kernel's launches on each of its paths, each counted from 0
+    kernels[3]["launches_by_path"] = {
+        "train": train_counts["fused_ec_update"],
+        "refresh-ec": refresh["ec"]["launches"]["fused_ec_update"], "sweep": sweep["launches"],
+        **{f"paper-mlp/{j}": n for j, n in mlp_counts.items() if n},
+        **{f"paper-resnet/{j}": n for j, n in resnet_counts.items() if n}}
     (OUT / "result.json").write_text(json.dumps({"card": card, "kernels": kernels,
                                                   "flash": flash, "flash256": flash256,
                                                   "paged": paged, "ptxas": ptxas,
@@ -1909,6 +2493,10 @@ def main() -> int:
                                                   "serve_launch": serve_launch,
                                                   "refresh": refresh, "ckpt": ckpt,
                                                   "launch_train": launch_train,
+                                                  "stationary_async": stationary_async,
+                                                  "sweep": sweep, "smoke_paper": smoke_paper,
+                                                  "paper_mlp": paper_mlp,
+                                                  "paper_resnet": paper_resnet,
                                                   "phase_s": phase_s},
                                                  indent=1, default=str))
     print(json.dumps({"kernels": kernels}))

@@ -10,11 +10,14 @@ configs carry (jnp types, numpy dtypes or names) to torch dtypes, and
 ``config_from`` copies a reference ModelConfig into the port's.
 
 Sampler states cross field by field: ``state_from_numpy`` turns a
-reference ``SGHMCState``/``ECSGHMCState`` whose leaves are numpy arrays
+reference sampler state (SGHMC, EC-SGHMC, Async SGHMC, EC-SGLD or one of
+the EASGD family) whose leaves are numpy arrays
 (``jax.tree.map(np.asarray, state)``) into the port's state of the same
 name on a given device, with a host-int ``step``; ``state_to_numpy`` goes
 back to a dict of numpy trees.  ``array_to_device`` is the numpy -> tensor
-step they share with ``train/checkpoint.py``.  A chain-stacked parameter tree crosses like any other tree.
+step they share with ``train/checkpoint.py``.  A chain-stacked parameter
+tree, and the flat parameter dicts of the MLP and ResNet-32, cross like any
+other tree.
 """
 from __future__ import annotations
 
@@ -115,10 +118,11 @@ def config_from(ref_cfg) -> ModelConfig:
 def state_from_numpy(ref_state, *, device):
     """A reference sampler state (NamedTuple of numpy trees) -> the port's
     state class of the same name, tensors on ``device``."""
-    from repro_torch.core.ec_sghmc import ECSGHMCState
-    from repro_torch.core.sghmc import SGHMCState
+    from repro_torch import core
 
-    classes = {"ECSGHMCState": ECSGHMCState, "SGHMCState": SGHMCState}
+    classes = {c.__name__: c for c in (
+        core.AsyncSGHMCState, core.EAMSGDState, core.EASGDState, core.ECMSGDState,
+        core.ECSGHMCState, core.ECSGLDState, core.SGHMCState)}
     name = type(ref_state).__name__
     if name not in classes:
         raise ValueError(f"no port state for {name}")

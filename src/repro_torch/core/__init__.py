@@ -2,10 +2,15 @@
 update)`` transforms over (possibly chain-stacked) trees of tensors.
 Ported: SGLD, SGHMC and EC-SGHMC (fused and unfused), the adaptive tier
 (diagonal preconditioners, scale-adapted SGHMC and EC-SGHMC, pSGLD, the
-FeedbackESS controller), schedules, potentials and the tree helpers;
-``ec_sgld``, ``async_sghmc``, ``easgd`` and ``recipe`` are not yet."""
-from . import rng
+FeedbackESS controller), the paper's naive Async SGHMC baseline
+(``async_sghmc``), EC-SGLD, the EASGD family (``easgd``, ``eamsgd``,
+``ec_msgd``), the complete-recipe simulator (``recipe``), schedules,
+potentials and the tree helpers."""
+from . import recipe, rng
+from .async_sghmc import AsyncSGHMCState, async_sghmc
+from .easgd import EAMSGDState, EASGDState, ECMSGDState, eamsgd, easgd, ec_msgd
 from .ec_sghmc import ECSGHMCState, ec_sghmc, p_step, resample_chain_from_center
+from .ec_sgld import ECSGLDState, ec_sgld
 from .potential import Potential, chainwise, flat_prior, gaussian_prior, make_potential
 from .preconditioned_sgld import PSGLDState, preconditioned_sgld
 from .preconditioner import (
@@ -45,7 +50,12 @@ from .tree_util import (
 from .types import Sampler
 
 __all__ = [
+    "AsyncSGHMCState",
+    "EAMSGDState",
+    "EASGDState",
+    "ECMSGDState",
     "ECSGHMCState",
+    "ECSGLDState",
     "FeedbackESS",
     "PSGLDState",
     "Potential",
@@ -59,11 +69,16 @@ __all__ = [
     "adam_preconditioner",
     "apply_updates",
     "as_schedule",
+    "async_sghmc",
     "chainwise",
     "constant",
     "cosine",
     "count_params",
+    "eamsgd",
+    "easgd",
+    "ec_msgd",
     "ec_sghmc",
+    "ec_sgld",
     "feedback_ess",
     "flat_prior",
     "frozen_mass_inv",
@@ -74,6 +89,7 @@ __all__ = [
     "p_step",
     "polynomial_decay",
     "preconditioned_sgld",
+    "recipe",
     "resample_chain_from_center",
     "rmsprop_preconditioner",
     "rng",

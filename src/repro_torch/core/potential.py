@@ -5,17 +5,20 @@ The paper's target:  p(θ|D) ∝ exp(-U(θ)),
     Ũ(θ)  = - (N/|B|) Σ_{x∈B} log p(x|θ) - log p(θ)     (minibatch estimate)
 
 ``make_potential`` wraps ``nll_fn(params, batch) -> (sum_nll, batch_size)``
-and a prior into value/grad functions; gradients come from
+and a prior into value/grad functions; ``batch_size`` is a host int (the
+count of examples in the batch), so the N/|B| scale is an f32 host scalar
+and no count is copied to the card.  Gradients come from
 ``torch.autograd``.  ``chainwise`` lifts a potential over a leading chain
-axis by looping over the chains.
+axis with ``torch.func.vmap``.
 """
 from __future__ import annotations
 
 from typing import Callable, NamedTuple
 
+import numpy as np
 import torch
 
-from .tree_util import tree_leaves, tree_map, tree_unflatten
+from .tree_util import tree_leaves, tree_unflatten
 
 
 class Prior(NamedTuple):
@@ -62,46 +65,34 @@ def value_and_grad(fn: Callable, has_aux: bool = False) -> Callable:
 def make_potential(nll_fn: Callable, n_data: int, prior: Prior | None = None) -> Potential:
     prior = prior or flat_prior()
 
+    def count(bsz: int) -> np.float32:
+        return np.float32(max(bsz, 1))
+
     def value(params, batch):
         sum_nll, bsz = nll_fn(params, batch)
-        scale = torch.tensor(float(n_data), dtype=torch.float32) / torch.clamp(
-            torch.as_tensor(bsz, dtype=torch.float32), min=1.0)
-        return scale.to(sum_nll.device) * sum_nll + prior.energy(params)
+        return float(np.float32(n_data) / count(bsz)) * sum_nll + prior.energy(params)
 
     def mean_nll(params, batch):
         sum_nll, bsz = nll_fn(params, batch)
-        return sum_nll / torch.clamp(torch.as_tensor(bsz, dtype=torch.float32), min=1.0)
+        return sum_nll / float(count(bsz))
 
     vag = value_and_grad(value)
     return Potential(value=value, grad=lambda p, b: vag(p, b)[1], value_and_grad=vag, nll=mean_nll)
 
 
-def _chain(tree, k):
-    return tree_map(lambda x: x[k], tree)
-
-
 def chainwise(potential: Potential) -> Potential:
     """Lift a Potential over a leading chain axis K on params (the batch
     carries a matching leading axis: each chain sees its own minibatch).
-    Values stack to (K,); grads stack to the params' shapes."""
+    Values stack to (K,); grads stack to the params' shapes.  The chains
+    run as one batched pass through ``torch.func.vmap`` (the reference's
+    ``jax.vmap``), so the model must be a pure function of its tensors."""
+    from torch.func import grad, grad_and_value, vmap
 
-    def k_of(params):
-        return int(tree_leaves(params)[0].shape[0])
-
-    def value(params, batch):
-        return torch.stack([potential.value(_chain(params, k), _chain(batch, k))
-                            for k in range(k_of(params))])
+    gv = vmap(grad_and_value(potential.value))
 
     def value_and_grad_(params, batch):
-        outs = [potential.value_and_grad(_chain(params, k), _chain(batch, k))
-                for k in range(k_of(params))]
-        values = torch.stack([o[0] for o in outs])
-        grads = tree_map(lambda *gs: torch.stack(gs), *[o[1] for o in outs])
+        grads, values = gv(params, batch)
         return values, grads
 
-    def nll(params, batch):
-        return torch.stack([potential.nll(_chain(params, k), _chain(batch, k))
-                            for k in range(k_of(params))])
-
-    return Potential(value=value, grad=lambda p, b: value_and_grad_(p, b)[1],
-                     value_and_grad=value_and_grad_, nll=nll)
+    return Potential(value=vmap(potential.value), grad=vmap(grad(potential.value)),
+                     value_and_grad=value_and_grad_, nll=vmap(potential.nll))

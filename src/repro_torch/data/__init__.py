@@ -1,5 +1,8 @@
-"""Synthetic token data for the training slice."""
-from .pipeline import chain_batches
-from .synthetic import synthetic_token_stream, token_batch
+"""Synthetic data: the token stream of the training slice, and the
+teacher-labelled MNIST- and CIFAR-shaped datasets of the paper's
+experiments with their sharded loader."""
+from .pipeline import ShardedLoader, chain_batches
+from .synthetic import synthetic_cifar10, synthetic_mnist, synthetic_token_stream, token_batch
 
-__all__ = ["chain_batches", "synthetic_token_stream", "token_batch"]
+__all__ = ["ShardedLoader", "chain_batches", "synthetic_cifar10", "synthetic_mnist",
+           "synthetic_token_stream", "token_batch"]

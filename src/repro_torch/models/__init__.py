@@ -1,3 +1,4 @@
+from . import mlp, resnet
 from .common import LayerKind, ModelConfig, ParamSpec, init_params, num_params, tree_leaves, tree_map
 from .registry import ModelDef, PagedDef, get_model
 
@@ -9,7 +10,9 @@ __all__ = [
     "ParamSpec",
     "get_model",
     "init_params",
+    "mlp",
     "num_params",
+    "resnet",
     "tree_leaves",
     "tree_map",
 ]

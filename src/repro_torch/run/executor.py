@@ -17,7 +17,14 @@ contract:
 * the adaptation configuration: a ``sampler_factory(hyper)`` builds the
   sampler from an UNSWEPT ``hyper`` dict once per chunk, and
   ``adapt_fn(step_end, carry, hyper)`` may replace ``hyper`` at each chunk
-  boundary (``ess_feedback_adapter`` closes the FeedbackESS loop there).
+  boundary (``ess_feedback_adapter`` closes the FeedbackESS loop there);
+* a SWEEP axis (``sweep=True``, or a ``hyper`` dict of length-S tensors):
+  params, state and keys carry a leading axis of S independent runs (seeds,
+  or a hyperparameter grid that ``sampler_factory`` builds one sampler per
+  run from).  The reference vmaps the runs into one program; the port runs
+  them one after another within each chunk, over per-run views of the
+  stacked tensors, so the in-place updates land in the stack and a swept
+  run equals its per-member runs bit for bit.
 
 Key modes (``key_mode``), as in the reference, over ``core.rng`` keys:
 
@@ -32,8 +39,7 @@ ones advanced.  ``stream`` is the chunk-boundary snapshot hook of the
 serving refresher: because the carry is written in place, its snapshots
 are copies (the reference may hand out its immutable carry itself), and
 its readiness probe is a CUDA event, not a device scalar.
-Not ported yet (``NotImplementedError``): swept runs (``sweep=True``, a
-vmapped axis of hyperparameters) and ``run_sharded``/``lower_sharded``
+Not ported yet (``NotImplementedError``): ``run_sharded``/``lower_sharded``
 (multi-GPU).  Capturing a chunk as a CUDA graph is later performance work.
 """
 from __future__ import annotations
@@ -113,17 +119,22 @@ def _sync(tree) -> None:
             torch.cuda.synchronize(d)
 
 
-def _copy(tree):
-    """A copy of every tensor of a tree of dicts, tuples and NamedTuples
-    (a sampler state); other leaves (host ints) are shared."""
+def _map_tensors(fn, tree):
+    """``fn`` on every tensor of a tree of dicts, tuples and NamedTuples (a
+    sampler state); other leaves (host ints, None) as they are."""
     if isinstance(tree, torch.Tensor):
-        return tree.detach().clone()
+        return fn(tree)
     if isinstance(tree, dict):
-        return {k: _copy(v) for k, v in tree.items()}
+        return {k: _map_tensors(fn, v) for k, v in tree.items()}
     if isinstance(tree, tuple):
-        items = [_copy(v) for v in tree]
+        items = [_map_tensors(fn, v) for v in tree]
         return type(tree)(*items) if hasattr(tree, "_fields") else tuple(items)
     return tree
+
+
+def _copy(tree):
+    """A copy of every tensor of a tree; host leaves are shared."""
+    return _map_tensors(lambda x: x.detach().clone(), tree)
 
 
 def _probe(tree):
@@ -135,6 +146,94 @@ def _probe(tree):
     ev = torch.cuda.Event()
     ev.record(torch.cuda.current_stream(leaf.device))
     return ev
+
+
+def _index(tree, i):
+    """Run ``i`` of a swept tree: a view ``x[i]`` of every tensor."""
+    return _map_tensors(lambda x: x[i], tree)
+
+
+def _put(stacked, new, i):
+    """Write run ``i``'s tree ``new`` into the swept tree ``stacked``: a
+    tensor that is not already the view ``stacked[i]`` is copied into it;
+    host leaves are taken from ``new``.  Returns the swept tree."""
+    if isinstance(stacked, torch.Tensor):
+        view = stacked[i]
+        if new.data_ptr() != view.data_ptr() or new.shape != view.shape:
+            view.copy_(new)
+        return stacked
+    if isinstance(stacked, dict):
+        return {k: _put(stacked[k], new[k], i) for k in stacked}
+    if isinstance(stacked, tuple):
+        items = [_put(a, b, i) for a, b in zip(stacked, new)]
+        return type(stacked)(*items) if hasattr(stacked, "_fields") else tuple(items)
+    return new
+
+
+def stack_runs(items):
+    """Per-run trees -> one swept tree: tensors stacked on a new leading
+    axis, host leaves that every run shares kept as they are (a sampler's
+    step), others made a tensor.  A swept run's state is
+    ``stack_runs([sampler.init(p) for p in per_run_params])`` (the
+    reference's ``jax.vmap(sampler.init)``)."""
+    first = items[0]
+    if isinstance(first, torch.Tensor):
+        return torch.stack(items)
+    if isinstance(first, dict):
+        return {k: stack_runs([it[k] for it in items]) for k in first}
+    if isinstance(first, tuple):
+        fields = [stack_runs(list(xs)) for xs in zip(*items)]
+        return type(first)(*fields) if hasattr(first, "_fields") else tuple(fields)
+    if all(it == first for it in items):
+        return first
+    return torch.as_tensor(items)
+
+
+def _sequence(x) -> bool:
+    return isinstance(x, (list, tuple, np.ndarray, torch.Tensor)) and np.ndim(x) >= 1
+
+
+class _Sweep:
+    """The S runs of a swept ``run``: checks that every tensor of params and
+    state, the keys and the hyper values carry a leading axis of S, and
+    hands out each run's key, keys and hyper (host scalars)."""
+
+    def __init__(self, params, state, key, keys, hyper, key_mode):
+        leaves = [x for x in tree_leaves(params) if isinstance(x, torch.Tensor)]
+        if not leaves or leaves[0].ndim < 1:
+            raise ValueError("a swept run needs params with a leading sweep axis")
+        self.size = S = int(leaves[0].shape[0])
+        for name, tree in (("params", params), ("state", state)):
+            shapes = []
+            _map_tensors(lambda x: shapes.append(tuple(x.shape)), tree)
+            for shape in shapes:
+                if not shape or shape[0] != S:
+                    raise ValueError(f"every tensor of the swept {name} needs a leading axis of "
+                                     f"size {S}, got shape {shape}")
+        if key_mode == "keys" and len(keys) != S:
+            raise ValueError(f"swept keys need one sequence per run: {len(keys)} for {S} runs")
+        self.stacked_key = _sequence(key)
+        if key_mode == "carry" and not self.stacked_key:
+            raise ValueError("a swept carry-mode run needs one key per run")
+        if self.stacked_key and len(key) != S:
+            raise ValueError(f"swept keys need one per run: {len(key)} for {S} runs")
+        for v in tree_leaves(hyper) if hyper else ():
+            if np.ndim(v) < 1 or len(v) != S:
+                raise ValueError(f"every swept hyper value needs length {S}")
+        self._key, self._keys = key, keys
+
+    def key(self, i):
+        return int(self._key[i]) if self.stacked_key else self._key
+
+    def keys(self, i):
+        return None if self._keys is None else self._keys[i]
+
+    @staticmethod
+    def hyper(hyper, i):
+        if hyper is None:
+            return None
+        at = lambda v: v[i].detach().cpu().numpy()[()] if isinstance(v, torch.Tensor) else v[i]
+        return tree_map(at, hyper)
 
 
 class ChainExecutor:
@@ -237,18 +336,23 @@ class ChainExecutor:
         ``fold_in`` and ``batch_fn``).  ``on_chunk(step_end, params, state,
         outs)`` runs at every chunk boundary; returning False stops the run.
 
-        ``hyper``: the dict ``sampler_factory`` builds the sampler from;
-        pass ``sweep=False`` with it (a hyper without ``sweep=False`` means
-        a swept run, which is not ported).  ``adapt_fn(step_end, carry,
-        hyper) -> hyper | None`` runs at every chunk boundary but the last,
-        after ``on_chunk``; a non-None return replaces ``hyper`` for the
-        chunks after it.  ``carry`` is a dict of the run's state:
-        ``params``, ``state``, ``t`` (the absolute step), ``wf`` and
-        ``ess`` (the in-carry accumulators, or None).
+        ``hyper``: the dict ``sampler_factory`` builds the sampler from.
+        ``sweep`` (default: implied by ``hyper``; pass ``sweep=False`` for
+        an UNSWEPT hyper, the adaptation configuration) runs S independent
+        runs over the leading axis of every tensor of params and state:
+        ``keys`` is then S sequences of ``num_steps`` keys, ``key`` one
+        shared base key or a sequence of S keys (``"fold"``; S keys in
+        ``"carry"``), and every value of ``hyper`` has length S.  The trace
+        and stats are (S, T', ...), the metrics, moments and ESS per run.
+        A host ``batch_fn`` cannot be swept (``NotImplementedError``, as in
+        the reference).  ``adapt_fn(step_end, carry, hyper) -> hyper |
+        None`` runs at every chunk boundary but the last, after
+        ``on_chunk``; a non-None return replaces ``hyper`` for the chunks
+        after it.  ``carry`` is a dict of the run's state: ``params``,
+        ``state``, ``t`` (the absolute step), ``wf`` and ``ess`` (the
+        in-carry accumulators, or None).
         """
         sweep = (hyper is not None) if sweep is None else bool(sweep)
-        if sweep:
-            raise NotImplementedError("swept hyper runs (a vmapped S axis) are not ported yet")
         if self.sampler_factory is not None and hyper is None:
             raise ValueError("sampler_factory mode needs hyper=")
         if self.key_mode == "keys" and keys is None:
@@ -257,19 +361,25 @@ class ChainExecutor:
             raise ValueError(f"key_mode={self.key_mode!r} needs key=")
         if self.trace_fn is not None and num_steps % self.thin != 0:
             raise ValueError("num_steps must be a multiple of thin when tracing")
-        acc = {"wf": None, "ess": None, "carry_key": key}
-        if self.moments:
-            acc["wf"] = welford_init(params)
-        if self.ess_probe_fn is not None:
-            acc["ess"] = batch_ess_init(self.ess_probe_fn(params), self.ess_batch_len)
+        if sweep:
+            if self.batch_fn is not None:
+                raise NotImplementedError("host batch_fn + sweep is unsupported")
+            runs = _Sweep(params, state, key, keys, hyper, self.key_mode)
+            accs = [self._acc(_index(params, i), runs.key(i)) for i in range(runs.size)]
+            chunk = lambda p, st, h, **kw: self._swept_chunk(p, st, h, runs=runs, accs=accs, **kw)
+            acc_view = lambda: {k: stack_runs([a[k] for a in accs]) for k in ("wf", "ess")}
+        else:
+            acc = self._acc(params, key)
+            chunk = lambda p, st, h, **kw: self._chunk(p, st, h, key=key, keys=keys, acc=acc, **kw)
+            acc_view = lambda: acc
         traces, stats, metrics = [], [], {}
         t_run, t_abs = 0, int(start_step)
         t0 = time.perf_counter()
         stopped = False
         while t_run < num_steps and not stopped:
             n = min(self.chunk_steps, num_steps - t_run)
-            params, state, metrics, outs = self._chunk(
-                params, state, hyper, n=n, t_run=t_run, t_abs=t_abs, key=key, keys=keys, acc=acc)
+            params, state, metrics, outs = chunk(params, state, hyper, n=n, t_run=t_run,
+                                                 t_abs=t_abs)
             t_run += n
             t_abs += n
             if "trace" in outs:
@@ -279,25 +389,55 @@ class ChainExecutor:
             if on_chunk is not None and on_chunk(t_abs, params, state, outs) is False:
                 stopped = True
             if adapt_fn is not None and t_run < num_steps and not stopped:
-                carry = {"params": params, "state": state, "t": t_abs, "wf": acc["wf"],
-                         "ess": acc["ess"]}
+                accs_now = acc_view()
+                carry = {"params": params, "state": state, "t": t_abs, "wf": accs_now["wf"],
+                         "ess": accs_now["ess"]}
                 new_hyper = adapt_fn(t_abs, carry, hyper)
                 if new_hyper is not None:
                     hyper = new_hyper
         _sync(params)
         wall = time.perf_counter() - t0
-        cat = lambda ts: tree_map(lambda *xs: torch.cat(xs), *ts)
+        axis = 1 if sweep else 0
+        cat = lambda ts: tree_map(lambda *xs: torch.cat(xs, dim=axis), *ts)
+        final = acc_view()
         return RunResult(
             params=params,
             state=state,
             trace=cat(traces) if traces else None,
             stats=cat(stats) if stats else None,
             metrics=metrics,
-            moments=acc["wf"],
-            ess=acc["ess"],
+            moments=final["wf"],
+            ess=final["ess"],
             steps=t_run,
             wall_s=wall,
         )
+
+    def _acc(self, params, key):
+        """The in-carry accumulators of one run, and its carried key."""
+        acc = {"wf": None, "ess": None, "carry_key": key}
+        if self.moments:
+            acc["wf"] = welford_init(params)
+        if self.ess_probe_fn is not None:
+            acc["ess"] = batch_ess_init(self.ess_probe_fn(params), self.ess_batch_len)
+        return acc
+
+    def _swept_chunk(self, params, state, hyper, *, runs, accs, n, t_run, t_abs):
+        """``_chunk`` for each of the S runs in turn, over views of the
+        stacked params and state (a value a sampler returns as a new tensor
+        is copied into the stack).  Returns the stacked (params, state,
+        per-run metrics, outs with a leading S axis)."""
+        results, state_in = [], state  # every run starts from the chunk's host leaves (step)
+        for i in range(runs.size):
+            p_i, s_i = _index(params, i), _index(state_in, i)
+            p_i, s_i, metrics, outs = self._chunk(
+                p_i, s_i, runs.hyper(hyper, i), n=n, t_run=t_run, t_abs=t_abs, key=runs.key(i),
+                keys=runs.keys(i), acc=accs[i])
+            params = _put(params, p_i, i)
+            state = _put(state, s_i, i)
+            results.append((metrics, outs))
+        metrics = stack_runs([m for m, _ in results])
+        outs = {k: stack_runs([o[k] for _, o in results]) for k in results[0][1]}
+        return params, state, metrics, outs
 
     def _chunk(self, params, state, hyper, *, n, t_run, t_abs, key, keys, acc):
         """Advance ``n`` steps from absolute step ``t_abs`` (``t_run`` into
@@ -445,10 +585,10 @@ def rollout(
     **kw,
 ) -> RunResult:
     """One-call executor run for sampler-over-potential workloads (the
-    stationary battery, ensemble collection).  ``grad_fn(theta)`` takes
-    only the gradient targets."""
-    if sweep:
-        raise NotImplementedError("sweep runs are not ported yet")
+    stationary battery, toy benchmarks, ensemble collection).
+    ``grad_fn(theta)`` takes only the gradient targets.  With ``sweep`` the
+    params carry a leading axis of S runs, and each run's state is its own
+    ``sampler.init`` (stacked)."""
     if chunk_steps % thin != 0:
         chunk_steps = thin * max(chunk_steps // thin, 1)
     ex = ChainExecutor(
@@ -463,5 +603,7 @@ def rollout(
         **kw,
     )
     if state is None:
-        state = sampler.init(params)
-    return ex.run(params, state, num_steps=num_steps, keys=keys, key=key)
+        state = (stack_runs([sampler.init(_index(params, i))
+                              for i in range(int(tree_leaves(params)[0].shape[0]))])
+                 if sweep else sampler.init(params))
+    return ex.run(params, state, num_steps=num_steps, keys=keys, key=key, sweep=sweep)

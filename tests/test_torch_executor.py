@@ -127,31 +127,105 @@ def test_step_fn_mode_and_batches():
     assert float(res.metrics["b"]) == 16.0
 
 
-@pytest.mark.parametrize("call", ["factory", "hyper", "adapt", "sharded", "lower", "feedback",
-                                  "sweep"])
+@pytest.mark.parametrize("call", ["sharded", "lower"])
 def test_unported_modes_raise(call):
     samp = _sampler()
-    mk = lambda: ChainExecutor(sampler=samp, grad_fn=lambda t, b: _grad(t), key_mode="fold")
+    ex = ChainExecutor(sampler=samp, grad_fn=lambda t, b: _grad(t), key_mode="fold")
     p0 = torch.zeros(4, 3)
-    factory = lambda: ChainExecutor(sampler_factory=lambda h: samp, grad_fn=lambda t, b: t,
-                                    key_mode="fold", ess_probe_fn=lambda p: p[0])
-    # sampler_factory, adapt_fn and ess_feedback_adapter are ported for
-    # unswept hyper, and stream with the serving refresher (its tests are in
-    # test_torch_refresh.py); the swept runs (hyper without sweep=False) and
-    # the sharded runs still wait
+    # the sharded runs wait for multi-GPU chains
     calls = {
-        "factory": lambda: factory().run(p0, samp.init(p0), num_steps=1, key=1, hyper={}),
-        "hyper": lambda: mk().run(p0, samp.init(p0), num_steps=1, key=1, hyper={}),
-        "adapt": lambda: mk().run(p0, samp.init(p0), num_steps=1, key=1, hyper={}, sweep=True,
-                                  adapt_fn=lambda *a: None),
-        "sharded": lambda: mk().run_sharded(p0, None, num_steps=1, key=1, mesh=None),
-        "lower": lambda: mk().lower_sharded(p0, None, num_steps=1, key=1, mesh=None),
-        "feedback": lambda: factory().run(p0, samp.init(p0), num_steps=2, key=1, hyper={},
-                                          adapt_fn=ess_feedback_adapter(None)),
-        "sweep": lambda: rollout(samp, _grad, p0, num_steps=1, keys=[1], sweep=True),
+        "sharded": lambda: ex.run_sharded(p0, None, num_steps=1, key=1, mesh=None),
+        "lower": lambda: ex.lower_sharded(p0, None, num_steps=1, key=1, mesh=None),
     }
     with pytest.raises(NotImplementedError):
         calls[call]()
+
+
+SWEEP_P0 = np.stack([np.full((4, 3), MU + 1.0), np.full((4, 3), MU - 2.0)]).astype(np.float32)
+SWEEP_EPS = np.array([0.1, 0.05], np.float32)
+
+
+def _swept_calls(core_mod, executor_cls, adapter, roll, key, one_key, zeros, pkg):
+    """The swept calls of one package.  The plain ids run on an unswept
+    state: a hyper without ``sweep=False`` (or ``sweep=True``) sweeps the
+    leading axis of params and state, which that state does not carry.
+    The ``-swept`` ids make the same call on a state swept over two runs
+    (``pkg``: the package's ``asarray``, its swept ``init``, (S, steps)
+    keys and the hyper values), at temperature 0 so that the two packages'
+    different noise streams drop out."""
+    samp = core_mod.ec_sghmc(step_size=0.1, alpha=1.0, sync_every=4)
+    mk = lambda: executor_cls(sampler=samp, grad_fn=lambda t, b: _grad(t), key_mode="fold")
+    factory = lambda: executor_cls(sampler_factory=lambda h: samp, grad_fn=lambda t, b: t,
+                                   key_mode="fold", ess_probe_fn=lambda p: p[0])
+    p0 = zeros((4, 3))
+    cold = core_mod.ec_sghmc(step_size=0.1, alpha=1.0, sync_every=4, temperature=0.0)
+    cold_mk = lambda: executor_cls(sampler=cold, grad_fn=lambda t, b: _grad(t), key_mode="fold")
+    grid = lambda h: core_mod.ec_sghmc(step_size=h["eps"], alpha=1.0, sync_every=4,
+                                       temperature=0.0)
+    cold_factory = lambda: executor_cls(sampler_factory=grid, grad_fn=lambda t, b: t,
+                                        key_mode="fold", ess_probe_fn=lambda p: p[0])
+    ps = lambda: pkg["asarray"](SWEEP_P0)
+    st = lambda: pkg["init"](cold, ps())
+    return {
+        "factory": lambda: factory().run(p0, samp.init(p0), num_steps=1, key=key, hyper={}),
+        "hyper": lambda: mk().run(p0, samp.init(p0), num_steps=1, key=key, hyper={}),
+        "adapt": lambda: mk().run(p0, samp.init(p0), num_steps=1, key=key, hyper={}, sweep=True,
+                                  adapt_fn=lambda *a: None),
+        "feedback": lambda: factory().run(p0, samp.init(p0), num_steps=2, key=key, hyper={},
+                                          adapt_fn=adapter(None)),
+        "sweep": lambda: roll(samp, _grad, p0, num_steps=1, keys=one_key, sweep=True),
+        "factory-swept": lambda: cold_factory().run(ps(), st(), num_steps=8, key=key,
+                                                    hyper=pkg["hyper"]),
+        "hyper-swept": lambda: cold_mk().run(ps(), st(), num_steps=8, key=key, hyper={}),
+        "adapt-swept": lambda: cold_mk().run(ps(), st(), num_steps=8, key=key, hyper={},
+                                             sweep=True, adapt_fn=lambda *a: None),
+        "feedback-swept": lambda: cold_factory().run(ps(), st(), num_steps=2, key=key,
+                                                     hyper=pkg["hyper"], adapt_fn=adapter(None)),
+        "sweep-swept": lambda: roll(cold, _grad, ps(), num_steps=8, keys=pkg["keys"], sweep=True),
+    }
+
+
+def _outcome(fn):
+    try:
+        return fn(), None
+    except Exception as e:  # noqa: BLE001 - the exception type is what is compared
+        return None, type(e)
+
+
+@pytest.mark.parametrize("call", ["factory", "hyper", "adapt", "feedback", "sweep",
+                                  "factory-swept", "hyper-swept", "adapt-swept",
+                                  "feedback-swept", "sweep-swept"])
+def test_swept_modes_match_reference(call):
+    """Swept runs are ported: each call behaves as the reference's same call
+    (its keys made JAX keys): the same result, or the same exception type
+    where the reference raises.  The unswept-state calls raise in both; the
+    swept-state calls run in both and give the same params (atol 2e-6)."""
+    import jax
+
+    from repro import core as jcore
+    from repro.run import ChainExecutor as JChainExecutor
+    from repro.run import ess_feedback_adapter as j_adapter
+    from repro.run import rollout as jrollout
+    from repro_torch.run import stack_runs
+
+    jkey = jax.random.PRNGKey(1)
+    jpkg = dict(asarray=jnp.asarray, init=lambda s, p: jax.vmap(s.init)(p),
+                keys=jax.random.split(jkey, 16).reshape(2, 8, -1),
+                hyper={"eps": jnp.asarray(SWEEP_EPS)})
+    tpkg = dict(asarray=torch.tensor,  # a copy: the port updates its params in place
+                init=lambda s, p: stack_runs([s.init(x) for x in p]),
+                keys=[rng.split(rng.key(1), 8), rng.split(rng.key(2), 8)],
+                hyper={"eps": torch.from_numpy(SWEEP_EPS)})
+    ref = _swept_calls(jcore, JChainExecutor, j_adapter, jrollout, jkey,
+                       jax.random.split(jkey, 1), jnp.zeros, jpkg)[call]
+    port = _swept_calls(core, ChainExecutor, ess_feedback_adapter, rollout, 1, [[1]],
+                        torch.zeros, tpkg)[call]
+    (ref_out, ref_exc), (out, exc) = _outcome(ref), _outcome(port)
+    assert exc is ref_exc, f"port raised {exc}, the reference {ref_exc}"
+    assert (exc is None) == call.endswith("-swept")
+    if ref_exc is None:
+        assert out.params.shape == SWEEP_P0.shape
+        np.testing.assert_allclose(out.params.numpy(), np.asarray(ref_out.params), atol=2e-6)
 
 
 # --- streaming diagnostics against the reference --------------------------------

@@ -21,6 +21,9 @@ def _modules():
 def test_importing_every_module_loads_no_jax():
     mods = list(_modules())
     assert "repro_torch.serve.engine.engine" in mods and len(mods) > 20
+    assert {"repro_torch.core.async_sghmc", "repro_torch.core.ec_sgld", "repro_torch.core.easgd",
+            "repro_torch.core.recipe", "repro_torch.models.mlp", "repro_torch.models.resnet",
+            "repro_torch.data.pipeline", "repro_torch.data.synthetic"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
