@@ -76,16 +76,29 @@ It imports torch, numpy and repro_torch only, and:
    the CPU (``[smoke-paper]``); and Fig. 2 at the paper's widths through
    ``ChainExecutor`` and ``ShardedLoader``: the 2x800 MLP on synthetic
    MNIST (SGHMC, and K = 6 fused EC-SGHMC and Async SGHMC at s = 1 and 8,
-   2000 steps, ``[paper-mlp]``) and ResNet-32 at width 16 on synthetic
+   1000 steps, ``[paper-mlp]``) and ResNet-32 at width 16 on synthetic
    CIFAR-10 (SGHMC and fused EC-SGHMC at s = 4, 400 steps,
    ``[paper-resnet]``), with the predictive and BMA NLL on the test set at
    every evaluation and the kernel's launches per job;
-11. prints one JSON line of the six kernels, the card line, and the result
+11. chains across ranks: the int8 center-exchange codec at the size of the
+   full-width exchange, the card's bytes equal to the CPU port's, with
+   encode and decode times against the byte bound (``[codec]``, after
+   ``[philox]``, which also holds the kernel's ``chain_offset`` against
+   the unsplit launch); ``[train]``'s configuration through
+   ``ChainExecutor.run_sharded`` on a one-rank NCCL mesh, raw and with the
+   int8 exchange, against ``run`` bit for bit under
+   ``torch.use_deterministic_algorithms(True)``, with the collective
+   counter read around each run (``[shard]``); two gloo ranks spawned on
+   the one card at the SMOKE size against a single-process run
+   (``[shard-2rank]``); and compressed parking on the full-width paged
+   engine (``[park]``);
+12. prints one JSON line of the six kernels, the card line, and the result
    line.
 
 TF32 is off for matmuls and cuDNN (``allow_tf32 = False``), so f32
 products are full f32.  The caching allocator runs with expandable
-segments (``PYTORCH_CUDA_ALLOC_CONF``, unless the caller set it).  Any failure raises and exits non-zero; without
+segments (``PYTORCH_CUDA_ALLOC_CONF``, unless the caller set it), and
+cuBLAS with the deterministic workspace (``CUBLAS_WORKSPACE_CONFIG``).  Any failure raises and exits non-zero; without
 CUDA it exits 2 and prints no result.  Long output (nvcc's build log, the
 profile table, the full JSON result) goes to ``build/chip_smoke/``.
 """
@@ -96,8 +109,10 @@ import json
 import math
 import os
 import pathlib
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import types
 
@@ -1114,6 +1129,26 @@ def phase_philox(torch, ops, ref, cfg_full):
     if not (torch.equal(a, a2) and same_frac < 1e-3 and torch.equal(a, plain)
             and torch.equal(wide[0], a[0, :250000])):
         raise AssertionError("Philox stream check failed")
+    # chain_offset: a rank's chains k.. of a split run draw the unsplit
+    # run's noise, on both paths, and the plain version's bits from the
+    # global element on
+    offsets = {}
+    for full in (a, wide):
+        zk = torch.zeros_like(full)
+        for off in (1, 3):
+            part = ops.fused_ec_update(zk[off:], zk[off:], zk[off:], zk[0], seed=EC_KEY, leaf=3,
+                                       step=5, chain_offset=off, **hyper)[1]
+            h1, h2 = ref.philox_bits(EC_KEY, 3, 5, part.numel(), off * zk.shape[1])
+            bits = tuple(torch.from_numpy(h.view(np.int32)).cuda().view(part.shape)
+                         for h in (h1, h2))
+            plain_part = ops.fused_ec_update(zk[off:], zk[off:], zk[off:], zk[0], bits=bits,
+                                             **hyper)[1]
+            offsets[(full.shape[1], off)] = (torch.equal(part, full[off:]),
+                                            torch.equal(part, plain_part))
+    log(f"[philox] chain_offset (N, offset): (== the unsplit launch's chains, == plain bits "
+        f"from the global element): {offsets}")
+    if not all(all(v) for v in offsets.values()):
+        raise AssertionError("chain_offset does not draw the unsplit run's noise")
     return dict(n=n, m1=m1, m2=m2, m4=m4)
 
 
@@ -1250,6 +1285,7 @@ def phase_smoke_train(torch):
         r = tree_map(lambda x: torch.randn(x.shape[1:], generator=gen), members)
         noise.append((bits, r))
     out = {}
+    torch.use_deterministic_algorithms(True)  # a nondeterministic op raises and names itself
     for dev in ("cpu", "cuda"):
         to = lambda t: tree_map(lambda x: x.to(dev, copy=True), t)  # the run updates in place
         samp = default_sampler(cfg, "qwen3-0.6b", K, sync_every=2, fused=True, step_size=1e-3)
@@ -1264,6 +1300,7 @@ def phase_smoke_train(torch):
             raise AssertionError(f"SMOKE training launched fused_ec_update "
                                  f"{launches['fused_ec_update']} times, not {steps * n_leaves}")
         out[dev] = (p, s, h)
+    torch.use_deterministic_algorithms(False)
     diffs = {}
     for name, get in (("params", lambda o: o[0]), ("momentum", lambda o: o[1].momentum),
                       ("center", lambda o: o[1].center)):
@@ -1416,7 +1453,7 @@ PAPER_LR, PAPER_BETA = 3e-7, 0.9  # benchmarks/posterior_driver.py's sgd_map(lr,
 PAPER_PRIOR = 1e-5  # Gaussian prior lambda (the paper's MNIST value)
 PAPER_BURNIN = 0.25  # share of the steps before the BMA starts accumulating
 MLP_TRAIN, MLP_TEST, MLP_BATCH = 60_000, 2_000, 100
-MLP_STEPS, MLP_EVAL = 2000, 20
+MLP_STEPS, MLP_EVAL = 1000, 20  # the paper runs 2000 steps: cut for the call's time
 RESNET_WIDTH = 16
 RESNET_TRAIN, RESNET_TEST, RESNET_BATCH = 50_000, 1_000, 50
 RESNET_STEPS, RESNET_EVAL = 400, 80  # the paper runs 2000 steps: cut for the call's time
@@ -1910,7 +1947,8 @@ REFRESH_REQUESTS = 8
 # one pair keeps the script's phases within their time budget
 REFRESH_PAIRS = 1
 EC_REFRESH_STEP = 1e-3  # EC-SGHMC over the bootstrap prior: a chunk spreads the chains past the gate
-CKPT_LAYERS = 4  # [ckpt]: qwen3-0.6b widths, depth cut from 28 so one checkpoint is ~10 GB
+CKPT_LAYERS = 2  # [ckpt]: qwen3-0.6b widths, depth cut from 28 and
+CKPT_K = 2  # the chains from 4, so one checkpoint is ~6 GB: the disk sets the phase's time
 # a checkpoint every 4 steps, not 2: two ~10 GB saves instead of four, each
 # bound by the disk
 CKPT_STEPS, CKPT_EVERY, CKPT_PREEMPT, CKPT_KEEP = 8, 4, 4, 2
@@ -2195,10 +2233,10 @@ def phase_refresh_ec(torch, card, setup, sgld_tps):
 def phase_ckpt(torch, card):
     """``train.loop.run`` with ``ckpt_dir``: fused EC-SGHMC (Philox) over the
     launcher's prior gradient at qwen3-0.6b's widths, depth cut to
-    ``CKPT_LAYERS``; 8 steps preempted at 4 and resumed against an
-    uninterrupted run, the loop's last checkpoint restored against the
-    resumed state (a timed save/restore round trip), a truncated newest
-    checkpoint, and an elastic restore to K = 6."""
+    ``CKPT_LAYERS`` and ``CKPT_K`` chains; 8 steps preempted at 4 and
+    resumed against an uninterrupted run, the loop's last checkpoint
+    restored against the resumed state (a timed save/restore round trip),
+    a truncated newest checkpoint, and an elastic restore to K = 6."""
     import shutil
 
     from repro_torch import configs, core
@@ -2211,7 +2249,7 @@ def phase_ckpt(torch, card):
 
     cfg = configs.get_config("qwen3-0.6b").replace(num_layers=CKPT_LAYERS)
     model = get_model(cfg)
-    K = 4
+    K = CKPT_K
     samp = core.ec_sghmc(step_size=EC_REFRESH_STEP, alpha=1.0, friction=1.0, center_friction=1.0,
                          sync_every=4, fused=True, state_dtype=cfg.param_dtype)
     center = serve_launch._init(model.param_specs(cfg), rnglib.key(600), "cuda")
@@ -2363,11 +2401,471 @@ def phase_launch_train(torch, card):
     return dict(nll=nll, wall=wall, peak=peak)
 
 
+# ---------------------------------------------------------------------------
+# chains across ranks: the int8 center exchange, run_sharded over
+# torch.distributed (one-rank NCCL at full width, two gloo ranks on one
+# card at the SMOKE size), compressed parking
+# ---------------------------------------------------------------------------
+
+SHARD_K = 4
+SHARD_SYNC = 4  # [train]'s s: 2 syncs in TRAIN_STEPS = 8 steps
+SHARD_SCALE_SLACK = 1e-4  # |q*scale - x| <= scale/2 up to one more f32 rounding (127 * 2^-23)
+SHARD2_STEPS = 8
+SHARD2_SYNC = 2  # 4 syncs in 8 steps
+SHARD2_ATOL = 1e-5  # alpha 1: 2 ranks' mean of 2-chain means vs the mean of 4, fed back 8 steps
+SHARD2_STEP_SIZE = 1e-3
+PARK_SLACK = 2.0 ** -8  # a restored bf16 value rounds the decoded f32 once more
+
+
+def phase_codec(torch, cfg_full):
+    """The int8 wire codec at the [shard] exchange's size: the f32 chain
+    means of K = 4 qwen3-0.6b chains over all 13 leaves (5.96e8 elements)
+    packed into one int8 buffer on the card, byte for byte the CPU port's
+    encoding, and decoded bitwise alike; encode and decode timed by CUDA
+    events (median of 5) against the byte bound (read 4 B, write ~1.016 B
+    per element)."""
+    from repro_torch.distributed import compression as cz
+
+    g = torch.Generator(device="cuda").manual_seed(21)
+    means = []
+    for shape in qwen_leaf_shapes(cfg_full, SHARD_K):
+        chains = 0.02 * torch.randn(shape, generator=g, device="cuda")
+        means.append(torch.mean(chains, dim=0))
+        del chains
+    sizes = [cz.packed_nbytes(m.numel()) for m in means]
+    offs = np.cumsum([0] + sizes).tolist()
+    packed = torch.empty(offs[-1], dtype=torch.int8, device="cuda")
+
+    def encode_all(out, leaves):
+        for m, a, b in zip(leaves, offs, offs[1:]):
+            cz.encode_packed(m, out=out[a:b])
+
+    def decode_all():
+        for m, a, b in zip(means, offs, offs[1:]):
+            cz.decode_packed(packed[a:b], m.shape, m.numel())
+
+    enc_ms = time_ms(torch, lambda: encode_all(packed, means), reps=5, warmup=1)
+    dec_ms = time_ms(torch, decode_all, reps=5, warmup=1)
+    n = sum(m.numel() for m in means)
+    nbytes = 4 * n + offs[-1]
+    b_ms, b_by = bound(nbytes, 0.0, F32_FLOPS_PER_S)
+    t0 = time.perf_counter()
+    host = torch.empty(offs[-1], dtype=torch.int8)
+    encode_all(host, [m.cpu() for m in means])
+    cpu_s = time.perf_counter() - t0
+    card_bytes = packed.cpu()
+    same_bytes = torch.equal(card_bytes, host)
+    # decode the card's bytes on the card and on the CPU
+    same_decode = all(
+        torch.equal(cz.decode_packed(packed[a:b], m.shape, m.numel()).cpu().view(torch.int32),
+                    cz.decode_packed(card_bytes[a:b], m.shape, m.numel()).view(torch.int32))
+        for m, a, b in zip(means, offs, offs[1:]))
+    log(f"[codec] packed means of K={SHARD_K} qwen3-0.6b chains, {len(means)} leaves, {n} "
+        f"elements -> {offs[-1]} bytes ({offs[-1] / (4 * n):.4f} of f32): encode {enc_ms:.3f} ms "
+        f"= {nbytes / enc_ms / 1e6:.1f} GB/s, decode {dec_ms:.3f} ms = "
+        f"{nbytes / dec_ms / 1e6:.1f} GB/s; byte bound {b_ms:.3f} ms ({nbytes / 1e9:.3f} GB at "
+        f"3.35 TB/s, {b_by}); card == CPU port: bytes {same_bytes}, decode bitwise "
+        f"{same_decode} (CPU encode {cpu_s:.1f} s)")
+    if not (same_bytes and same_decode):
+        raise AssertionError("[codec] the card's int8 encoding differs from the CPU port's")
+    del means, packed, host, card_bytes
+    torch.cuda.empty_cache()
+    return dict(n=n, packed_bytes=offs[-1], enc_ms=enc_ms, dec_ms=dec_ms, bound_ms=b_ms,
+                enc_gbs=nbytes / enc_ms / 1e6, dec_gbs=nbytes / dec_ms / 1e6)
+
+
+def _host(tree_leaves, tree):
+    return [x.detach().cpu() for x in tree_leaves(tree)]
+
+
+def _scale_gap(torch, got, want):
+    """Largest |got - want| over half the int8 codec's block scale of
+    ``want``, over all elements of a list of f32 leaves."""
+    from repro_torch.distributed import int8_codec
+
+    codec, worst = int8_codec(), 0.0
+    for a, b in zip(got, want):
+        b = b.to(a.device)
+        enc = codec.encode(b)
+        diff = (a.float() - b.float()).reshape(-1)
+        diff = torch.nn.functional.pad(diff, (0, enc["q"].numel() - diff.numel()))
+        half = 0.5 * enc["scale"].expand(-1, enc["q"].shape[1]).reshape(-1)
+        worst = max(worst, (diff.abs() / half.clamp(min=1e-30)).max().item())
+    return worst
+
+
+STATE_TREES = ("momentum", "center", "center_momentum", "center_stale", "mean_theta_stale")
+
+
+def phase_shard(torch, card, train):
+    """The slice's main path: [train]'s configuration (qwen3-0.6b, K = 4,
+    batch 4 x 64 per chain, fused EC-SGHMC in Philox mode, alpha 1, s 4,
+    eps 1e-6) for 8 steps through ``ChainExecutor.run_sharded`` on a
+    one-rank NCCL (chain,) mesh, raw and with the int8 exchange
+    (``default_sampler``'s EC-SGHMC built with ``chain_axis``), and through
+    ``run`` with the same key (``default_sampler``), under
+    ``torch.use_deterministic_algorithms(True)``.  Raw sharded == run bit
+    for bit; exactly 2 collectives each (2 all-reduces raw, 2 all-gathers
+    int8); the int8 run's chains equal the raw run's (the exchanged mean
+    reaches them only through c~ at the next sync) and its exchanged mean
+    is within half a codec scale of the raw one; 13 launches a step."""
+    import torch.distributed as dist
+
+    from repro_torch import configs, core
+    from repro_torch.core import rng
+    from repro_torch.data import chain_batches, synthetic_token_stream
+    from repro_torch.distributed import (collective_counts, int8_codec, local_chains,
+                                         packed_nbytes, reset_collective_counts,
+                                         sync_wire_bytes)
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.launch import default_sampler
+    from repro_torch.launch.mesh import initialize_distributed, make_chain_mesh
+    from repro_torch.models import get_model, tree_leaves
+    from repro_torch.run import ChainExecutor
+    from repro_torch.train import make_train_step
+
+    cfg = configs.get_config("qwen3-0.6b")
+    model = get_model(cfg)
+    stream = synthetic_token_stream(cfg.vocab_size, seed=0, device="cuda")
+    batch_fn = lambda t: chain_batches(stream, t, SHARD_K, 4, 64)
+    key = rng.key(2024)
+    out, saved = {}, {}
+    rdzv = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
+    initialize_distributed(backend="nccl", init_method=f"file://{rdzv}/rdzv", world_size=1,
+                           rank=0)
+    torch.use_deterministic_algorithms(True)
+    try:
+        mesh = make_chain_mesh(1)
+        log(f"[shard] one-rank {dist.get_backend()} process group, mesh {mesh}; "
+            f"deterministic algorithms on, CUBLAS_WORKSPACE_CONFIG="
+            f"{os.environ.get('CUBLAS_WORKSPACE_CONFIG')}")
+        for label in ("run", "raw", "int8"):
+            if label == "run":
+                samp = default_sampler(cfg, "qwen3-0.6b", SHARD_K, sync_every=SHARD_SYNC,
+                                       fused=True, step_size=1e-6)
+            else:  # default_sampler's EC-SGHMC, its exchange over the chain axis
+                samp = core.ec_sghmc(step_size=1e-6, alpha=1.0, friction=1.0,
+                                     center_friction=1.0, sync_every=SHARD_SYNC, fused=True,
+                                     state_dtype=cfg.param_dtype, chain_axis="chain",
+                                     compression=int8_codec() if label == "int8" else None)
+            params = stacked_members(torch, cfg, model, SHARD_K, "cuda", seed0=300)
+            state = samp.init(params)
+            ex = ChainExecutor(step_fn=make_train_step(cfg, model, samp, TRAIN_N_DATA),
+                               batch_fn=batch_fn, key_mode="fold", chunk_steps=TRAIN_STEPS)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            reset_collective_counts()
+            # step 1, then steps 2-8 (the steady s/step, as [train]'s); the key
+            # folds the absolute step, so the split run is the 8-step run
+            if label != "run":
+                params, state = local_chains(params, mesh, SHARD_K), local_chains(state, mesh,
+                                                                                  SHARD_K)
+            walls = []
+            for start, n in ((0, 1), (1, TRAIN_STEPS - 1)):
+                t0 = time.perf_counter()
+                if label == "run":
+                    res = ex.run(params, state, num_steps=n, key=key, start_step=start)
+                else:
+                    res = ex.run_sharded(params, state, num_steps=n, key=key, mesh=mesh,
+                                         start_step=start)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                params, state = res.params, res.state
+            wall, steady = sum(walls), walls[1] / (TRAIN_STEPS - 1)
+            counts, kl = collective_counts(), dict(launches)
+            peak = torch.cuda.max_memory_allocated()
+            n_leaves = len(tree_leaves(res.params))
+            n_params = sum(x[0].numel() for x in tree_leaves(res.params))
+            trees = {"params": res.params, **{n: getattr(res.state, n) for n in STATE_TREES}}
+            if not all(torch.isfinite(x).all().item() for t in trees.values()
+                       for x in tree_leaves(t)):
+                raise AssertionError(f"[shard] {label}: non-finite params or state")
+            if kl["fused_ec_update"] != TRAIN_STEPS * n_leaves:
+                raise AssertionError(f"[shard] {label}: fused_ec_update launched "
+                                     f"{kl['fused_ec_update']} times, not {TRAIN_STEPS * n_leaves}")
+            syncs = TRAIN_STEPS // SHARD_SYNC
+            want = {"run": {"all_reduce": 0, "all_gather": 0},
+                    "raw": {"all_reduce": syncs, "all_gather": 0},
+                    "int8": {"all_reduce": 0, "all_gather": syncs}}[label]
+            if {op: c["calls"] for op, c in counts.items()} != want:
+                raise AssertionError(f"[shard] {label}: collectives {counts}, want {want}")
+            per_sync = sum(c["bytes"] for c in counts.values()) / syncs if label != "run" else 0
+            leaf_sizes = [x[0].numel() for x in tree_leaves(res.params)]
+            expect = (4 * n_params if label == "raw"
+                      else sum(packed_nbytes(n) for n in leaf_sizes) if label == "int8" else 0)
+            if per_sync != expect:
+                raise AssertionError(f"[shard] {label}: {per_sync} bytes a sync, not {expect}")
+            checks = ""
+            if label == "run":
+                saved = {name: _host(tree_leaves, t) for name, t in trees.items()}
+            elif label == "raw":
+                same = {name: all(torch.equal(a, b.cuda()) for a, b in
+                                  zip(tree_leaves(t), saved[name])) for name, t in trees.items()}
+                checks = f"; == run bitwise: {same}"
+                if not all(same.values()):
+                    raise AssertionError(f"[shard] raw run_sharded differs from run: {same}")
+                saved["raw_center"] = _host(tree_leaves, res.state.center)
+                saved["raw_mth"] = _host(tree_leaves, res.state.mean_theta_stale)
+            else:
+                same_chains = all(torch.equal(a, b.cuda()) for a, b in
+                                  zip(tree_leaves(res.params), saved["params"]))
+                gap_mth = _scale_gap(torch, tree_leaves(res.state.mean_theta_stale),
+                                     saved["raw_mth"])
+                gap_c = _scale_gap(torch, tree_leaves(res.state.center), saved["raw_center"])
+                c_abs = max((a - b.cuda()).abs().max().item() for a, b in
+                            zip(tree_leaves(res.state.center), saved["raw_center"]))
+                out["gap_mth"], out["gap_center"], out["center_abs"] = gap_mth, gap_c, c_abs
+                checks = (f"; chains == raw run's bitwise: {same_chains}; exchanged mean vs raw "
+                          f"{gap_mth:.6f} of scale/2, center {gap_c:.3e} of scale/2 (max abs "
+                          f"{c_abs:.3e})")
+                if not (same_chains and gap_mth <= 1 + SHARD_SCALE_SLACK
+                        and gap_c <= 1 + SHARD_SCALE_SLACK):
+                    raise AssertionError(f"[shard] the int8 run left the codec's bound{checks}")
+            wire = sync_wire_bytes(n_params, compressed=label == "int8")
+            nll = f"; nll {float(res.metrics['nll_per_token']):.4f}" if res.metrics else ""
+            sync_ms = None
+            if label != "run":  # one more exchange of the final chains, timed alone
+                sync_ms = time_ms(torch, lambda: exchange(res, mesh, label == "int8"), reps=3,
+                                  warmup=1)
+                checks += f"; one exchange {sync_ms:.2f} ms"
+            log(f"[shard] {label}: qwen3-0.6b K={SHARD_K}, s {SHARD_SYNC}, {TRAIN_STEPS} steps in "
+                f"{wall:.2f} s, steady (steps 2-8) {steady:.3f} s/step ([train] {train['wall']:.2f} "
+                f"s, steady {train['steady']:.3f} s/step); "
+                f"peak {peak / 2**30:.2f} GiB ([train] {train['peak'] / 2**30:.2f}); "
+                f"collectives {counts} ({per_sync / 1e9:.4f} GB a sync; sync_wire_bytes "
+                f"{wire / 1e9:.4f} GB); fused_ec_update {kl['fused_ec_update']}{nll}{checks} "
+                f"[{card}]")
+            out[label] = dict(wall=wall, steady=steady, peak=peak, counts=counts, sync_ms=sync_ms,
+                              launches=kl["fused_ec_update"], bytes_per_sync=per_sync, wire=wire)
+            del samp, params, state, ex, res, trees
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        torch.use_deterministic_algorithms(False)
+        dist.destroy_process_group()
+        shutil.rmtree(rdzv, ignore_errors=True)
+        saved.clear()
+    return out
+
+
+def exchange(res, mesh, compressed):
+    """One s-periodic exchange of a sharded run's final chains into its
+    ``mean_theta_stale``, as the sampler makes it: one all-reduce, or with
+    ``compressed`` one packed int8 all-gather (timed by [shard])."""
+    from repro_torch.core.tree_util import pmean_into
+    from repro_torch.distributed import bind_axis, mesh_axis
+    from repro_torch.distributed.compression import compressed_mean_into
+    from repro_torch.models import tree_leaves
+
+    leaves = tree_leaves(res.params)
+    mths = tree_leaves(res.state.mean_theta_stale)
+    local_mean = lambda i: leaves[i].float().mean(dim=0)
+    with bind_axis("chain", mesh_axis(mesh, "chain")) as ax:
+        if compressed:
+            compressed_mean_into(mths, local_mean, ax)
+        else:
+            pmean_into(mths, local_mean, "chain")
+
+
+def shard2_run(torch, alpha, compress, mesh=None):
+    """[shard-2rank]'s run: SMOKE qwen3-0.6b, K = 4, fused EC-SGHMC in
+    Philox mode at s 2 for 8 steps on cuda:0, through ``run_sharded`` on
+    ``mesh`` (this rank's chains) or, without one, through ``run``.
+    Returns the chains, the state trees, the collectives and the launches
+    on the host."""
+    from repro_torch import configs, core
+    from repro_torch.core import rng
+    from repro_torch.data import chain_batches, synthetic_token_stream
+    from repro_torch.distributed import (collective_counts, int8_codec, local_chains,
+                                         reset_collective_counts)
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.models import get_model, tree_leaves
+    from repro_torch.run import ChainExecutor
+    from repro_torch.train import make_train_step
+
+    cfg = configs.get_config("qwen3-0.6b", smoke=True)
+    model = get_model(cfg)
+    samp = core.ec_sghmc(step_size=SHARD2_STEP_SIZE, alpha=alpha, friction=1.0,
+                         center_friction=1.0, sync_every=SHARD2_SYNC, fused=True,
+                         state_dtype=cfg.param_dtype,
+                         compression=int8_codec() if compress else None,
+                         chain_axis=None if mesh is None else "chain")
+    params = stacked_members(torch, cfg, model, SHARD_K, "cuda", seed0=400)
+    state = samp.init(params)
+    stream = synthetic_token_stream(cfg.vocab_size, seed=5, device="cuda")
+    ex = ChainExecutor(step_fn=make_train_step(cfg, model, samp, 1000),
+                       batch_fn=lambda t: chain_batches(stream, t, SHARD_K, 2, 16),
+                       key_mode="fold", chunk_steps=SHARD2_STEPS)
+    reset_launches()
+    reset_collective_counts()
+    if mesh is None:
+        res = ex.run(params, state, num_steps=SHARD2_STEPS, key=rng.key(3))
+    else:
+        res = ex.run_sharded(local_chains(params, mesh, SHARD_K),
+                             local_chains(state, mesh, SHARD_K), num_steps=SHARD2_STEPS,
+                             key=rng.key(3), mesh=mesh)
+    trees = {"params": res.params, **{n: getattr(res.state, n) for n in STATE_TREES}}
+    return dict(trees={n: _host(tree_leaves, t) for n, t in trees.items()},
+                counts=collective_counts(), launches=launches["fused_ec_update"],
+                n_leaves=len(tree_leaves(res.params)))
+
+
+SHARD2_CASES = ((0.0, False), (1.0, False), (1.0, True))  # (alpha, int8 exchange)
+
+
+def shard2_rank(rank, world):
+    """[shard-2rank]'s rank function, in a spawned process of a gloo group
+    on cuda:0: every case of SHARD2_CASES."""
+    import torch
+
+    from repro_torch.launch.mesh import make_chain_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.use_deterministic_algorithms(True)
+    mesh = make_chain_mesh(world)
+    return {case: shard2_run(torch, *case, mesh=mesh) for case in SHARD2_CASES}
+
+
+def phase_shard_2rank(torch, card):
+    """Two processes on cuda:0 in one gloo group (its collectives staged
+    through the host), each holding 2 of the K = 4 chains of
+    ``shard2_run``: at alpha 0 each rank's chains equal the matching chains
+    of the single-process ``run`` bit for bit (the kernel's chain_offset on
+    the card); at alpha 1 within SHARD2_ATOL; the replicated center trees
+    bit-identical on both ranks; one collective per sync, raw and int8.  A
+    rank's failure fails the phase."""
+    from repro_torch.launch.mesh import spawn_local
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        whole = {case: shard2_run(torch, *case) for case in SHARD2_CASES[:2]}
+    finally:
+        torch.use_deterministic_algorithms(False)
+    t0 = time.perf_counter()
+    ranks = spawn_local(shard2_rank, 2, backend="gloo", timeout_s=300)
+    spawn_s = time.perf_counter() - t0
+    syncs = SHARD2_STEPS // SHARD2_SYNC
+    kl = SHARD_K // 2
+    out = {"spawn_s": spawn_s}
+    for case in SHARD2_CASES:
+        alpha, comp = case
+        label = f"alpha {alpha:g}{' int8' if comp else ''}"
+        r0, r1 = ranks[0][case], ranks[1][case]
+        center_same = all(all(torch.equal(a, b) for a, b in zip(r0["trees"][n], r1["trees"][n]))
+                          for n in STATE_TREES[1:])
+        op = "all_gather" if comp else "all_reduce"
+        calls = [{o: c["calls"] for o, c in r["counts"].items()} for r in (r0, r1)]
+        want = {"all_reduce": 0, "all_gather": 0, op: syncs}
+        gap = center_gap = None  # chains, center trees against the single-process run
+        if case in whole:
+            gap = max((a - b[rank * kl:(rank + 1) * kl]).abs().max().item()
+                      for rank, r in enumerate((r0, r1)) for n in ("params", "momentum")
+                      for a, b in zip(r["trees"][n], whole[case]["trees"][n]))
+            # the mean over 2 ranks of 2-chain means rounds unlike the mean of 4
+            center_gap = max((a - b).abs().max().item() for n in STATE_TREES[1:]
+                             for a, b in zip(r0["trees"][n], whole[case]["trees"][n]))
+        fmt = lambda x: "-" if x is None else f"{x:.3e}"
+        log(f"[shard-2rank] {label}: SMOKE qwen3-0.6b K={SHARD_K} over 2 gloo ranks on one card, "
+            f"s {SHARD2_SYNC}, {SHARD2_STEPS} steps; vs the single-process run: chains max "
+            f"|diff| {fmt(gap)}, center trees {fmt(center_gap)}; center trees bit-identical on "
+            f"both ranks: {center_same}; collectives per rank {calls}; fused_ec_update "
+            f"{r0['launches']} + {r1['launches']}")
+        if not center_same or any(c != want for c in calls):
+            raise AssertionError(f"[shard-2rank] {label}: replicated center or collectives wrong")
+        if any(r["launches"] != SHARD2_STEPS * r["n_leaves"] for r in (r0, r1)):
+            raise AssertionError(f"[shard-2rank] {label}: fused_ec_update launched "
+                                 f"{r0['launches']} + {r1['launches']} times, not "
+                                 f"{SHARD2_STEPS * r0['n_leaves']} on each rank")
+        if (alpha == 0.0 and gap != 0.0) or (gap is not None
+                                             and max(gap, center_gap) > SHARD2_ATOL):
+            raise AssertionError(f"[shard-2rank] {label}: chains {gap}, center {center_gap} "
+                                 "from the single-process run")
+        out[label] = dict(gap=gap, center_gap=center_gap, calls=calls,
+                          launches=r0["launches"] + r1["launches"])
+    log(f"[shard-2rank] the two ranks took {spawn_s:.1f} s, spawn and imports included")
+    return out
+
+
+def phase_park(torch, card):
+    """[slice]'s paged qwen3-0.6b engine at full width (K = 4) with
+    ``compress_parked=True``: admit a 128-token prompt, park its slot and
+    restore it.  The restored KV is within the codec's bound of the
+    original (half a block scale, plus one bf16 rounding); a second park
+    and restore is bit-exact; parked bytes against raw bytes, park and
+    restore ms (host clock around a synchronised call)."""
+    from repro_torch import configs
+    from repro_torch.distributed import int8_codec
+    from repro_torch.models import get_model, tree_leaves
+    from repro_torch.serve.engine import ServeEngine, synthetic_trace
+
+    cfg = configs.get_config("qwen3-0.6b").replace(use_flash_kernel=True)
+    model = get_model(cfg)
+    members = stacked_members(torch, cfg, model, SHARD_K, "cuda", seed0=0)
+    eng = ServeEngine(cfg, model, members, paged=True, num_slots=8, max_seq=128 + 32,
+                      compress_parked=True, device="cuda")
+    pool = eng.pool
+    req = next(r for r in synthetic_trace(16, vocab_size=cfg.vocab_size, prompt_lens=(64, 128),
+                                          max_new=32, seed=0) if r.prompt.size == 128)
+    slot = pool.acquire()
+    eng._admit(req, slot, pool.admit_blocks(slot, req.prompt, req.max_new))
+
+    def pages(s):
+        row = pool.alloc.tables[s]
+        idx = torch.tensor(row[row != 0], dtype=torch.long, device="cuda")
+        return [leaf.index_select(leaf.ndim - 4, idx).clone() for leaf in tree_leaves(pool.caches)]
+
+    def timed(fn, *a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = fn(*a, **kw)
+        torch.cuda.synchronize()
+        return r, 1e3 * (time.perf_counter() - t)
+
+    orig = pages(slot)
+    parked, park_ms = timed(pool.park, slot)
+    slot, restore_ms = timed(pool.restore, parked, max_new=req.max_new)
+    once = pages(slot)
+    raw_bytes = sum(x.numel() * x.element_size() for x in orig)
+    parked_bytes = sum(x["q"].numel() + 4 * x["scale"].numel() if isinstance(x, dict)
+                       else x.numel() * x.element_size() for x in parked.leaves)
+    codec, worst = int8_codec(), 0.0
+    for o, r in zip(orig, once):
+        enc = codec.encode(o)
+        diff = torch.nn.functional.pad((r.float() - o.float()).reshape(-1),
+                                       (0, enc["q"].numel() - o.numel()))
+        half = 0.5 * enc["scale"].expand(-1, enc["q"].shape[1]).reshape(-1)
+        mag = torch.nn.functional.pad(r.float().abs().reshape(-1), (0, diff.numel() - o.numel()))
+        worst = max(worst, (diff.abs() / (half + PARK_SLACK * mag).clamp(min=1e-30)).max().item())
+    parked2, park2_ms = timed(pool.park, slot)
+    slot, restore2_ms = timed(pool.restore, parked2, max_new=req.max_new)
+    twice = pages(slot)
+    exact = all(torch.equal(a, b) for a, b in zip(once, twice))
+    log(f"[park] paged qwen3-0.6b K={SHARD_K}, a {req.prompt.size}-token slot "
+        f"({parked.num_pages} pages, {once[0].dtype}): parked {parked_bytes} bytes of "
+        f"{raw_bytes} ({parked_bytes / raw_bytes:.4f}); park {park_ms:.3f} ms, restore "
+        f"{restore_ms:.3f} ms (again: {park2_ms:.3f} / {restore2_ms:.3f} ms); restored vs "
+        f"original {worst:.4f} of the bound (scale/2 + 2^-8 |x|); second pass bit-exact "
+        f"{exact} [{card}]")
+    if worst > 1 + SHARD_SCALE_SLACK or not exact:
+        raise AssertionError("[park] compressed parking left the codec's bound or moved again")
+    del eng, members, pool, orig, once, twice, parked, parked2
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(raw_bytes=raw_bytes, parked_bytes=parked_bytes, park_ms=park_ms,
+                restore_ms=restore_ms, park2_ms=park2_ms, restore2_ms=restore2_ms, worst=worst)
+
+
 def main() -> int:
     # set before the first CUDA allocation: [refresh-ec] holds ~68 GiB of
     # live stacks on an 80 GB card, and without expandable segments the
     # splits of 1-2.5 GB blocks strand enough reserved memory to fail it
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    # set before the first CUDA call: cuBLAS's deterministic workspace, which
+    # torch.use_deterministic_algorithms(True) needs ([smoke-train], [shard],
+    # [shard-2rank], whose spawned ranks inherit it)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     if not torch.cuda.is_available():
@@ -2426,6 +2924,7 @@ def main() -> int:
     fused["paper"] = timed("fused_ec-paper", phase_fused_ec_small, torch, ops, ref)
     precond = timed("fused_precond", phase_fused_precond, torch, ops, ref, qwen)
     timed("philox", phase_philox, torch, ops, ref, qwen)
+    codec = timed("codec", phase_codec, torch, qwen)
     timed("stationary", phase_stationary, torch)
     stationary_async = timed("stationary-async", phase_stationary_async, torch)
     timed("stationary-precond", phase_stationary_precond, torch)
@@ -2453,6 +2952,9 @@ def main() -> int:
     smoke_paper = timed("smoke-paper", phase_smoke_paper, torch)
     mlp_counts, paper_mlp = timed("paper-mlp", phase_paper_mlp, torch, card)
     resnet_counts, paper_resnet = timed("paper-resnet", phase_paper_resnet, torch, card)
+    shard = timed("shard", phase_shard, torch, card, train)
+    shard_2rank = timed("shard-2rank", phase_shard_2rank, torch, card)
+    park = timed("park", phase_park, torch, card)
 
     f128 = next(r for r in flash if r["S"] == 128 and r["softcap"] is None)
     bg = next(r for r in bma if r["mode"] == "probs" and r["T"] == 0.0)
@@ -2481,7 +2983,9 @@ def main() -> int:
         "train": train_counts["fused_ec_update"],
         "refresh-ec": refresh["ec"]["launches"]["fused_ec_update"], "sweep": sweep["launches"],
         **{f"paper-mlp/{j}": n for j, n in mlp_counts.items() if n},
-        **{f"paper-resnet/{j}": n for j, n in resnet_counts.items() if n}}
+        **{f"paper-resnet/{j}": n for j, n in resnet_counts.items() if n},
+        "shard": shard["raw"]["launches"], "shard-int8": shard["int8"]["launches"],
+        "shard-2rank": shard_2rank["alpha 1"]["launches"]}
     (OUT / "result.json").write_text(json.dumps({"card": card, "kernels": kernels,
                                                   "flash": flash, "flash256": flash256,
                                                   "paged": paged, "ptxas": ptxas,
@@ -2497,6 +3001,8 @@ def main() -> int:
                                                   "sweep": sweep, "smoke_paper": smoke_paper,
                                                   "paper_mlp": paper_mlp,
                                                   "paper_resnet": paper_resnet,
+                                                  "codec": codec, "shard": shard,
+                                                  "shard_2rank": shard_2rank, "park": park,
                                                   "phase_s": phase_s},
                                                  indent=1, default=str))
     print(json.dumps({"kernels": kernels}))

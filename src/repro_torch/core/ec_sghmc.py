@@ -29,7 +29,21 @@ Noise: ``update(..., noise=...)`` takes ``{"p": tree, "r": tree}``, where
 mode), and ``"r"`` standard normals shaped like the center.  Without it
 the unfused path draws from ``rng`` through ``torch.Generator``s and the
 fused path generates Philox noise inside the kernel, keyed by ``rng`` and
-countered by the leaf, the step and the element.
+countered by the leaf, the step and the GLOBAL element index.
+
+Chains across ranks (DESIGN.md §2 and §7): a sampler built with
+``chain_axis`` runs inside ``ChainExecutor.run_sharded``, which binds the
+axis name to a process group; each rank holds its local chains and the
+whole replicated center state.  The s-periodic mean then issues exactly
+ONE collective, whatever the number of leaves: the local means are
+written into ``mean_theta_stale`` (views of one flat f32 buffer, made at
+``init``), one all-reduce sums it in place and it is divided by W; with
+``compression`` it is one all-gather of one packed int8 buffer instead.
+The center noise comes from the step key alone, the same on every rank,
+so the replicated center never drifts apart; the chains' noise depends
+on the global chain index only (per-chain generators unfused, the
+kernel's ``chain_offset`` fused), so a rank's chains follow the matching
+chains of the unsharded run.
 """
 from __future__ import annotations
 
@@ -39,13 +53,14 @@ import numpy as np
 import torch
 
 from repro_torch.diagnostics.spread import chain_center_rms
+from repro_torch.distributed.collectives import axis
 from repro_torch.kernels import ref as kref
 
 from . import rng as rnglib
 from .schedules import as_schedule
 from .sghmc import _noise_scale
-from .tree_util import (count_params, global_norm, leaf_normals, tree_leaves, tree_map,
-                        tree_unflatten)
+from .tree_util import (count_params, flat_f32_views, global_norm, leaf_normals, pmean_into,
+                        tree_leaves, tree_map, tree_unflatten)
 from .types import Sampler
 
 F32 = np.float32
@@ -100,15 +115,34 @@ def ec_sghmc(
     per_chain_noise: bool | None = None,
 ) -> Sampler:
     """``center_noise_in_p``: Eq. 6 as printed injects N(0, 2eps^2 (V+C))
-    into p; False injects only the V part.  ``compression``, ``chain_axis``
-    and ``per_chain_noise`` (the multi-device exchange) are not ported and
-    raise ``NotImplementedError``."""
-    if compression is not None or chain_axis is not None or per_chain_noise:
-        raise NotImplementedError(
-            "compression / chain_axis / per_chain_noise wait for distributed/ in the port")
+    into p; False injects only the V part.
+
+    ``compression``: an ``distributed.int8_codec()`` for the sync.  Under
+    ``chain_axis`` the exchange moves the packed int8 encoding (one
+    all-gather); without it the reduced mean is quantized in place (the
+    wire noise, no fewer bytes), as in the reference.
+
+    ``chain_axis``: the name of the axis the leading chain axis is split
+    over; the sampler then runs only where ``run_sharded`` binds it, and
+    ``update`` raises ``NameError`` elsewhere.  ``init`` takes the GLOBAL
+    chains (the center is their mean); a rank then keeps its slice
+    (``distributed.local_chains``).
+
+    ``per_chain_noise``: draw chain i's momentum noise from
+    ``fold_in(k_p, global chain index)`` (unfused only; default on under
+    ``chain_axis`` unfused; turned off there, each rank draws one block
+    from ``fold_in(k_p, rank)``, the reference's legacy path).  The fused
+    kernel counts its Philox noise by
+    the global element index, which is layout-invariant already, so
+    ``per_chain_noise=True`` with ``fused=True`` raises ``ValueError``."""
     schedule = as_schedule(step_size)
     minv = 1.0 / mass
     s = int(sync_every)
+    if per_chain_noise is None:
+        per_chain_noise = chain_axis is not None and not fused
+    if per_chain_noise and fused:
+        raise ValueError("per_chain_noise requires the unfused update "
+                         "(the fused kernel draws block noise from counter bits)")
 
     def init(params):
         center = tree_map(lambda p: torch.mean(p.to(state_dtype), dim=0), params)
@@ -117,7 +151,7 @@ def ec_sghmc(
             center=center,
             center_momentum=tree_map(torch.zeros_like, center),
             center_stale=tree_map(torch.clone, center),
-            mean_theta_stale=tree_map(torch.clone, center),
+            mean_theta_stale=mean_buffer(center),
             step=0,
         )
 
@@ -133,9 +167,18 @@ def ec_sghmc(
         updates = tree_map(lambda p: em * p.float(), state.momentum)
 
         # -- momentum updates (they read the old c~) -------------------------
+        # the step key is the same on every rank: k_r (the replicated
+        # center's noise) must be; the chains' noise is keyed by the
+        # global chain index (``offset``) below
         k_p = k_r = None
         if noise is None:
             k_p, k_r = rnglib.split(rng)
+        offset = 0
+        if chain_axis is not None:
+            rank = axis(chain_axis).rank
+            offset = rank * int(tree_leaves(state.momentum)[0].shape[0])
+            if not (fused or per_chain_noise) and k_p is not None:
+                k_p = rnglib.fold_in(k_p, rank)  # block noise, decorrelated per rank
         if fused:
             from repro_torch.kernels.ops import fused_ec_update_tree
 
@@ -146,12 +189,13 @@ def ec_sghmc(
                 params, state.momentum, grads, state.center_stale,
                 eps=eps, friction=friction, mass=mass, alpha=alpha, sigma_p=sigma_p,
                 stochastic_round=True, bits=None if noise is None else noise["p"],
-                seed=k_p, step=state.step,
+                seed=k_p, step=state.step, chain_offset=offset,
             )
         else:
             for p, g, th, ct, n in zip(
                     *map(tree_leaves, (state.momentum, grads, params, state.center_stale)),
-                    leaf_normals(None if noise is None else noise["p"], k_p, state.momentum)):
+                    leaf_normals(None if noise is None else noise["p"], k_p, state.momentum,
+                                 offset if per_chain_noise else None)):
                 p.copy_(p_step(p, g, th, ct, n, eps=eps, friction=friction, minv=minv,
                                alpha=alpha, sigma_p=sigma_p, out_dtype=state_dtype))
 
@@ -167,7 +211,7 @@ def ec_sghmc(
             r.copy_(r_new)
 
         if (state.step + 1) % s == 0:
-            stale_exchange(state, params, updates)
+            stale_exchange(state, params, updates, chain_axis, compression)
         return updates, state._replace(step=state.step + 1)
 
     def stats(state, params):
@@ -176,14 +220,47 @@ def ec_sghmc(
     return Sampler(init, update, stats=stats)
 
 
-def stale_exchange(state, params, updates) -> None:
+def mean_buffer(center):
+    """``mean_theta_stale`` at init: a copy of the center, as consecutive
+    views of one flat f32 buffer when the center is f32 (the sharded
+    exchange reduces that buffer in place with one all-reduce)."""
+    leaves = tree_leaves(center)
+    if any(c.dtype != torch.float32 for c in leaves):
+        return tree_map(torch.clone, center)
+    views = flat_f32_views([c.shape for c in leaves], leaves[0].device)
+    for v, c in zip(views, leaves):
+        v.copy_(c)
+    return tree_unflatten(center, views)
+
+
+def stale_exchange(state, params, updates, chain_axis=None, compression=None) -> None:
     """The s-periodic exchange, in place: workers push theta^i (post-update,
     theta + u), the server replies with c.  Leaf by leaf, so theta + u
-    never exists whole."""
+    never exists whole.  Over a bound ``chain_axis`` the chain mean takes
+    ONE collective: an all-reduce of the flat f32 means, or with
+    ``compression`` an all-gather of their packed int8 encoding."""
     for ct, c in zip(tree_leaves(state.center_stale), tree_leaves(state.center)):
         ct.copy_(c)
-    for mth, th, u in zip(*map(tree_leaves, (state.mean_theta_stale, params, updates))):
-        mth.copy_(torch.mean(th.float() + u, dim=0))
+    mths = tree_leaves(state.mean_theta_stale)
+    th_u = list(zip(tree_leaves(params), tree_leaves(updates)))
+
+    def local_mean(i):
+        th, u = th_u[i]
+        return torch.mean(th.float() + u, dim=0)
+
+    if chain_axis is None:
+        for i, mth in enumerate(mths):
+            m = local_mean(i)
+            if compression is not None:
+                # single program: quantize the reduced mean (the wire noise)
+                m = compression.decode(compression.encode(m))
+            mth.copy_(m)
+    elif compression is not None:
+        from repro_torch.distributed.compression import compressed_mean_into
+
+        compressed_mean_into(mths, local_mean, axis(chain_axis))
+    else:
+        pmean_into(mths, local_mean, chain_axis)
 
 
 def ec_stats(state, params, alpha: float) -> dict:

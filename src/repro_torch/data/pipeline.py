@@ -1,7 +1,8 @@
-"""Data pipeline: chain-stacked LM batches and the sharded loader of the
-paper's classification experiments.  Batch t is a pure function of
-(seed, t), so restart and resume need only the step counter; per the
-paper, every chain (or worker) draws its own minibatch."""
+"""Data pipeline: chain-stacked LM batches, the sharded loader of the
+paper's classification experiments, and ``place``, which cuts a rank's
+chains out of a global batch.  Batch t is a pure function of (seed, t), so
+restart and resume need only the step counter; per the paper, every chain
+(or worker) draws its own minibatch."""
 from __future__ import annotations
 
 from typing import Callable
@@ -51,3 +52,18 @@ class ShardedLoader:
         if self.k == 1:
             bx, by = bx[0], by[0]
         return {"x": bx, "y": by}
+
+
+def place(batch, mesh, *, num_chains: int, axis: str = "chain", device=None):
+    """This rank's part of a global batch for a run whose chains are split
+    over the ``axis`` dimension of ``mesh``: every tensor with a leading
+    chain axis of ``num_chains`` cut to the rank's chains (the reference
+    device_puts the batch against its chain sharding), moved to ``device``
+    when one is given."""
+    from repro_torch.distributed import sharding
+    from repro_torch.models.common import map_tensors
+
+    local = sharding.local_chains(batch, mesh, num_chains, axis)
+    if device is None:
+        return local
+    return map_tensors(lambda x: x.to(device, non_blocking=True), local)

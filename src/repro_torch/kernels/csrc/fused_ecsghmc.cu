@@ -29,8 +29,12 @@
 // order); production mode makes them here with Philox-4x32-10, key
 // (seed lo, seed hi), counter (element / 2, leaf, step lo, step hi), words
 // (0, 1) for even elements and (2, 3) for odd ones, the counterpart of the
-// TPU's pltpu.prng_random_bits.  Both updates draw the same noise for the
-// same (seed, leaf, step), so at m == 1 they are bitwise equal.  The update
+// TPU's pltpu.prng_random_bits.  The element is the GLOBAL index
+// (chain_offset + k) * N + j: a rank that holds chains chain_offset ..
+// chain_offset + K - 1 of a run split over ranks draws exactly those
+// chains' noise of the unsplit run (chain_offset 0).  Both updates draw
+// the same noise for the same (seed, leaf, step), so at m == 1 they are
+// bitwise equal.  The update
 // uses __fmul_rn/__fadd_rn/__fsub_rn so that nvcc does not contract it into
 // FMAs: it rounds exactly as PyTorch's eager ops round the plain version,
 // and logf/cosf/sqrtf are the functions PyTorch's CUDA log/cos/sqrt call.
@@ -121,14 +125,16 @@ __device__ __forceinline__ void update_one(const T* theta, const T* p, const flo
   }
 }
 
+// e: the element's index in the leaf (parity mode's bits); ge: its global
+// index, the Philox counter.
 template <bool PHILOX>
 __device__ __forceinline__ void bits_of(const unsigned* bits1, const unsigned* bits2, int64_t e,
-                                        unsigned k0, unsigned k1, unsigned leaf, uint64_t step,
-                                        unsigned& b1, unsigned& b2) {
+                                        int64_t ge, unsigned k0, unsigned k1, unsigned leaf,
+                                        uint64_t step, unsigned& b1, unsigned& b2) {
   if (PHILOX) {
-    const uint4 r = philox(make_uint4((unsigned)(e >> 1), leaf, (unsigned)step,
+    const uint4 r = philox(make_uint4((unsigned)(ge >> 1), leaf, (unsigned)step,
                                       (unsigned)(step >> 32)), k0, k1);
-    if (e & 1) { b1 = r.z; b2 = r.w; } else { b1 = r.x; b2 = r.y; }
+    if (ge & 1) { b1 = r.z; b2 = r.w; } else { b1 = r.x; b2 = r.y; }
   } else {
     b1 = bits1[e];
     b2 = bits2[e];
@@ -142,15 +148,15 @@ ec_update_scalar(const T* __restrict__ theta, const T* p, const float* __restric
                  const float* __restrict__ minv, const T* __restrict__ c,
                  const unsigned* __restrict__ bits1,
                  const unsigned* __restrict__ bits2, T* __restrict__ theta_out, T* p_out,
-                 int64_t K, int64_t N, unsigned k0, unsigned k1, unsigned leaf, uint64_t step,
-                 Scalars s) {
+                 int64_t K, int64_t N, int64_t ebase, unsigned k0, unsigned k1, unsigned leaf,
+                 uint64_t step, Scalars s) {
   for (int64_t j = blockIdx.x * (int64_t)THREADS + threadIdx.x; j < N;
        j += (int64_t)gridDim.x * THREADS) {
     const float cj = load(c, j);
     for (int64_t k = 0; k < K; ++k) {
       const int64_t e = k * N + j;
       unsigned b1, b2;
-      bits_of<PHILOX>(bits1, bits2, e, k0, k1, leaf, step, b1, b2);
+      bits_of<PHILOX>(bits1, bits2, e, ebase + e, k0, k1, leaf, step, b1, b2);
       update_one<T, PRECOND, SR>(theta, p, g, minv, cj, theta_out, p_out, e, b1, b2, s);
     }
   }
@@ -183,7 +189,8 @@ ec_update_vec(const T* __restrict__ theta, const T* p, const float* __restrict__
               const float* __restrict__ minv, const T* __restrict__ c,
               const unsigned* __restrict__ bits1,
               const unsigned* __restrict__ bits2, T* __restrict__ theta_out, T* p_out, int64_t K,
-              int64_t N, unsigned k0, unsigned k1, unsigned leaf, uint64_t step, Scalars s) {
+              int64_t N, int64_t ebase, unsigned k0, unsigned k1, unsigned leaf, uint64_t step,
+              Scalars s) {
   using V = typename Vec4<T>::type;
   const int64_t groups = N / 4;
   for (int64_t q = blockIdx.x * (int64_t)THREADS + threadIdx.x; q < groups;
@@ -199,9 +206,11 @@ ec_update_vec(const T* __restrict__ theta, const T* p, const float* __restrict__
       if (PRECOND) unpack(__ldg(reinterpret_cast<const float4*>(minv + e0)), mv);
       unsigned b1[4], b2[4];
       if (PHILOX) {
-        const uint4 r0 = philox(make_uint4((unsigned)(e0 >> 1), leaf, (unsigned)step,
+        // ebase = chain_offset * N is a multiple of 4, so ge0 is even
+        const int64_t ge0 = ebase + e0;
+        const uint4 r0 = philox(make_uint4((unsigned)(ge0 >> 1), leaf, (unsigned)step,
                                            (unsigned)(step >> 32)), k0, k1);
-        const uint4 r1 = philox(make_uint4((unsigned)(e0 >> 1) + 1u, leaf, (unsigned)step,
+        const uint4 r1 = philox(make_uint4((unsigned)(ge0 >> 1) + 1u, leaf, (unsigned)step,
                                            (unsigned)(step >> 32)), k0, k1);
         b1[0] = r0.x; b2[0] = r0.y; b1[1] = r0.z; b2[1] = r0.w;
         b1[2] = r1.x; b2[2] = r1.y; b1[3] = r1.z; b2[3] = r1.w;
@@ -236,20 +245,21 @@ ec_update_vec(const T* __restrict__ theta, const T* p, const float* __restrict__
 template <typename T, bool PRECOND, bool PHILOX, bool SR>
 int launch(const void* theta, const void* p, const float* g, const float* minv, const void* c,
            const unsigned* b1, const unsigned* b2, void* theta_out, void* p_out, int64_t K,
-           int64_t N, bool vec, uint64_t seed, unsigned leaf, uint64_t step, Scalars s,
-           cudaStream_t st) {
+           int64_t N, int64_t chain_offset, bool vec, uint64_t seed, unsigned leaf,
+           uint64_t step, Scalars s, cudaStream_t st) {
   const int64_t items = vec ? N / 4 : N;
   const int64_t want = (items + THREADS - 1) / THREADS;
   const int blocks = (int)(want < 132 * 16 ? (want > 0 ? want : 1) : 132 * 16);
   const unsigned k0 = (unsigned)seed, k1 = (unsigned)(seed >> 32);
+  const int64_t ebase = chain_offset * N;
   if (vec) {
     ec_update_vec<T, PRECOND, PHILOX, SR><<<blocks, THREADS, 0, st>>>(
         (const T*)theta, (const T*)p, g, minv, (const T*)c, b1, b2, (T*)theta_out, (T*)p_out, K, N,
-        k0, k1, leaf, step, s);
+        ebase, k0, k1, leaf, step, s);
   } else {
     ec_update_scalar<T, PRECOND, PHILOX, SR><<<blocks, THREADS, 0, st>>>(
         (const T*)theta, (const T*)p, g, minv, (const T*)c, b1, b2, (T*)theta_out, (T*)p_out, K, N,
-        k0, k1, leaf, step, s);
+        ebase, k0, k1, leaf, step, s);
   }
   return (int)cudaGetLastError();
 }
@@ -258,10 +268,10 @@ int launch(const void* theta, const void* p, const float* g, const float* minv, 
 template <bool PRECOND>
 int dispatch(const void* theta, const void* p, const float* g, const float* minv, const void* c,
              const unsigned* bits1, const unsigned* bits2, void* theta_out, void* p_out,
-             long long K, long long N, int is_bf16, int stochastic_round, int vec,
-             unsigned long long seed, unsigned leaf, unsigned long long step, Scalars s,
-             void* stream) {
-  if (K < 1 || N < 1) return (int)cudaErrorInvalidValue;
+             long long K, long long N, long long chain_offset, int is_bf16,
+             int stochastic_round, int vec, unsigned long long seed, unsigned leaf,
+             unsigned long long step, Scalars s, void* stream) {
+  if (K < 1 || N < 1 || chain_offset < 0) return (int)cudaErrorInvalidValue;
   if (PRECOND && minv == nullptr) return (int)cudaErrorInvalidValue;
   const bool philox_mode = bits1 == nullptr;
   if (!philox_mode && bits2 == nullptr) return (int)cudaErrorInvalidValue;
@@ -269,7 +279,7 @@ int dispatch(const void* theta, const void* p, const float* g, const float* minv
   const bool sr = stochastic_round != 0;
 #define EC_LAUNCH(T, PH, SRV)                                                                   \
   launch<T, PRECOND, PH, SRV>(theta, p, g, minv, c, bits1, bits2, theta_out, p_out, K, N,       \
-                              vec != 0, seed, leaf, step, s, st)
+                              chain_offset, vec != 0, seed, leaf, step, s, st)
   if (!is_bf16) return philox_mode ? EC_LAUNCH(float, true, false) : EC_LAUNCH(float, false, false);
   if (philox_mode) return sr ? EC_LAUNCH(__nv_bfloat16, true, true) : EC_LAUNCH(__nv_bfloat16, true, false);
   return sr ? EC_LAUNCH(__nv_bfloat16, false, true) : EC_LAUNCH(__nv_bfloat16, false, false);
@@ -278,16 +288,19 @@ int dispatch(const void* theta, const void* p, const float* g, const float* minv
 
 }  // namespace
 
+// chain_offset: the global index of the leaf's first chain (0 unless the
+// chains are split over ranks).
 extern "C" int fused_ec_update(const void* theta, const void* p, const float* g, const void* c,
                                const unsigned* bits1, const unsigned* bits2, void* theta_out,
-                               void* p_out, long long K, long long N, int is_bf16,
-                               int stochastic_round, int vec, unsigned long long seed,
-                               unsigned leaf, unsigned long long step, float eps_minv,
-                               float decay, float eps, float coupling, float sigma_p,
-                               void* stream) {
+                               void* p_out, long long K, long long N, long long chain_offset,
+                               int is_bf16, int stochastic_round, int vec,
+                               unsigned long long seed, unsigned leaf, unsigned long long step,
+                               float eps_minv, float decay, float eps, float coupling,
+                               float sigma_p, void* stream) {
   const Scalars s{eps_minv, decay, eps, coupling, sigma_p, 0.0f};
-  return dispatch<false>(theta, p, g, nullptr, c, bits1, bits2, theta_out, p_out, K, N, is_bf16,
-                         stochastic_round, vec, seed, leaf, step, s, stream);
+  return dispatch<false>(theta, p, g, nullptr, c, bits1, bits2, theta_out, p_out, K, N,
+                         chain_offset, is_bf16, stochastic_round, vec, seed, leaf, step, s,
+                         stream);
 }
 
 // minv: (K, N) f32, the per-chain diagonal M^-1.
@@ -299,6 +312,6 @@ extern "C" int fused_precond_ec_update(const void* theta, const void* p, const f
                                        unsigned leaf, unsigned long long step, float eps,
                                        float ef, float coupling, float sigma_p, void* stream) {
   const Scalars s{0.0f, 0.0f, eps, coupling, sigma_p, ef};
-  return dispatch<true>(theta, p, g, minv, c, bits1, bits2, theta_out, p_out, K, N, is_bf16,
+  return dispatch<true>(theta, p, g, minv, c, bits1, bits2, theta_out, p_out, K, N, 0, is_bf16,
                         stochastic_round, vec, seed, leaf, step, s, stream);
 }

@@ -244,10 +244,11 @@ def _chain_layout(theta, c_tilde):
                      f"{tuple(theta.shape)} nor one chain of it")
 
 
-def _ec_operands(theta, p, g, c_tilde, bits, seed, p_out):
+def _ec_operands(theta, p, g, c_tilde, bits, seed, p_out, chain_offset=0):
     """The checks both fused updates share.  Returns (on_card, K, N, g in
     f32, bits1, bits2), the bits flat and contiguous, or both None in
-    Philox mode."""
+    Philox mode, whose counters take the global element index (chains
+    from ``chain_offset`` on)."""
     on_card = _on_card(theta, p, g, c_tilde)
     if (bits is None) == (seed is None):
         raise ValueError("pass exactly one of bits= (parity mode) or seed= (Philox mode)")
@@ -271,38 +272,47 @@ def _ec_operands(theta, p, g, c_tilde, bits, seed, p_out):
             if b.dtype != torch.int32 or b.numel() < n or b.device != theta.device:
                 raise ValueError(f"bits must be int32 tensors of >= {n} elements on {theta.device}")
         b1, b2 = b1.reshape(-1)[:n].contiguous(), b2.reshape(-1)[:n].contiguous()
-    elif not 0 <= int(seed) < 1 << 64 or (n + 1) // 2 > 1 << 32:
-        raise ValueError("seed must be a 64-bit key and the leaf under 2^33 elements")
+    elif not 0 <= int(seed) < 1 << 64:
+        raise ValueError("seed must be a 64-bit key")
+    elif chain_offset < 0 or ((chain_offset + K) * N + 1) // 2 > 1 << 32:
+        raise ValueError(f"chains {chain_offset}..{chain_offset + K - 1} of {N} elements exceed "
+                         "the Philox counter (2^33 elements)")
     return on_card, K, N, g, b1, b2
 
 
-def _plain_bits(b1, b2, seed, leaf, step, shape):
+def _plain_bits(b1, b2, seed, leaf, step, shape, start=0):
     """The bits the plain version takes: the given ones, or the Philox bits
-    of (seed, leaf, step), shaped like theta."""
+    of (seed, leaf, step) from global element ``start`` on, shaped like
+    theta."""
     if b1 is None:
         n = math.prod(shape)
-        h1, h2 = ref.philox_bits(int(seed), int(leaf), int(step), n)
+        h1, h2 = ref.philox_bits(int(seed), int(leaf), int(step), n, start)
         b1, b2 = torch.from_numpy(h1.view(np.int32)), torch.from_numpy(h2.view(np.int32))
     return b1.view(shape), b2.view(shape)
 
 
 def fused_ec_update(theta, p, g, c_tilde, *, eps, friction, mass, alpha, sigma_p,
-                    stochastic_round=True, bits=None, seed=None, leaf=0, step=0, p_out=None):
+                    stochastic_round=True, bits=None, seed=None, leaf=0, step=0, p_out=None,
+                    chain_offset=0):
     """One leaf's fused Eq. 6 update.  Returns (theta', p') in theta's and
     p's dtypes.
 
     Noise: ``bits=(bits1, bits2)``, int32 tensors of uint32 bit patterns
     with at least ``theta.numel()`` elements in the leaf's flat order
     (parity mode), or ``seed`` (a 64-bit key) for Philox bits countered by
-    ``(leaf, step, element)`` (production mode; on the CPU the plain
-    version computes the same bits).  ``p_out`` (p itself, for an in-place
-    update) receives p'."""
-    on_card, K, N, g, b1, b2 = _ec_operands(theta, p, g, c_tilde, bits, seed, p_out)
+    ``(leaf, step, global element)`` (production mode; on the CPU the plain
+    version computes the same bits).  ``chain_offset``: the global index of
+    theta's first chain when the chains are split over ranks; chain k's
+    element j is global element ``(chain_offset + k) * N + j``, so the
+    rank draws the unsplit run's noise of its chains.  ``p_out`` (p itself,
+    for an in-place update) receives p'."""
+    on_card, K, N, g, b1, b2 = _ec_operands(theta, p, g, c_tilde, bits, seed, p_out,
+                                            int(chain_offset))
     scalars = ref.ec_scalars(eps, friction, 1.0 / mass, alpha, sigma_p)
     if theta.numel() == 0:
         return theta.clone(), (p_out if p_out is not None else p.clone())
     if not on_card:
-        b1, b2 = _plain_bits(b1, b2, seed, leaf, step, theta.shape)
+        b1, b2 = _plain_bits(b1, b2, seed, leaf, step, theta.shape, int(chain_offset) * N)
         t_new, p_new = ref.fused_ec_update(theta, p, g, c_tilde, b1, b2, scalars=scalars,
                                            stochastic_round=stochastic_round)
         return t_new, (p_out.copy_(p_new) if p_out is not None else p_new)
@@ -312,7 +322,8 @@ def fused_ec_update(theta, p, g, c_tilde, *, eps, friction, mass, alpha, sigma_p
     p_new = p_out if p_out is not None else torch.empty_like(p)
     _fe.launch(theta, p, g, c_tilde, b1, b2, t_new, p_new, K=K, N=N,
                seed=0 if seed is None else int(seed), leaf=int(leaf), step=int(step),
-               scalars=scalars, stochastic_round=stochastic_round)
+               scalars=scalars, stochastic_round=stochastic_round,
+               chain_offset=int(chain_offset))
     launches["fused_ec_update"] += 1
     return t_new, p_new
 
@@ -351,16 +362,17 @@ def fused_precond_ec_update(theta, p, g, c_tilde, minv, *, eps, friction, alpha,
 
 
 def fused_ec_update_tree(params, momentum, grads, center_stale, *, bits=None, seed=None,
-                         step=0, **hyper):
+                         step=0, chain_offset=0, **hyper):
     """Tree-level fused update, one kernel launch per leaf in flatten order,
     writing each p' over its p.  ``bits``: a tree of (bits1, bits2) pairs
     (parity mode), or ``seed`` for Philox noise with the leaf's flatten
-    index as its ``leaf``.  Returns the momentum tree.  Each leaf's theta'
+    index as its ``leaf`` (and ``chain_offset``, the global index of the
+    first chain).  Returns the momentum tree.  Each leaf's theta'
     is written by the kernel and dropped after its launch: the one caller,
     EC-SGHMC, takes the position step from its ``updates``, as the
     reference does, so only one leaf's theta' is ever held."""
     _tree_launches(fused_ec_update, (params, momentum, grads, center_stale), bits, seed, step,
-                   hyper)
+                   dict(hyper, chain_offset=chain_offset))
     return momentum
 
 

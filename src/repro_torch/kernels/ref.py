@@ -131,29 +131,32 @@ def precond_scalars(eps, friction, alpha, sigma_p):
     return float(e), float(e * _F32(friction)), float(e * _F32(alpha)), float(_F32(sigma_p))
 
 
-def philox_bits(seed: int, leaf: int, step: int, n: int):
-    """The production-mode noise bits of the fused kernel for the first
-    ``n`` elements of a leaf, as two uint32 numpy arrays.  Philox-4x32-10
-    with key (seed lo, seed hi) and counter (element // 2, leaf, step lo,
-    step hi); element 2q takes words (0, 1) of block q and element 2q+1
-    words (2, 3)."""
-    m = (n + 1) // 2
-    if m > 1 << 32:
-        raise ValueError(f"leaf of {n} elements is too large for the Philox counter")
+def philox_bits(seed: int, leaf: int, step: int, n: int, start: int = 0):
+    """The production-mode noise bits of the fused kernel for elements
+    ``start .. start + n - 1`` of a leaf (global element indices: a rank's
+    chains start at ``chain_offset * N``), as two uint32 numpy arrays.
+    Philox-4x32-10 with key (seed lo, seed hi) and counter (element // 2,
+    leaf, step lo, step hi); element 2q takes words (0, 1) of block q and
+    element 2q+1 words (2, 3)."""
+    if start < 0 or (start + n + 1) // 2 > 1 << 32:
+        raise ValueError(f"elements {start}..{start + n - 1} do not fit the Philox counter")
+    q0 = start // 2
+    m = (start + n + 1) // 2 - q0
     k0, k1 = seed & 0xFFFFFFFF, (seed >> 32) & 0xFFFFFFFF
     keys = []
     for _ in range(10):
         keys.append((np.uint64(k0), np.uint64(k1)))
         k0, k1 = (k0 + PHILOX_W[0]) & 0xFFFFFFFF, (k1 + PHILOX_W[1]) & 0xFFFFFFFF
     s32 = np.uint64(32)
-    c0 = np.arange(m, dtype=np.uint64)
+    c0 = np.arange(q0, q0 + m, dtype=np.uint64)
     c1, c2, c3 = np.uint64(leaf & 0xFFFFFFFF), np.uint64(step & 0xFFFFFFFF), np.uint64((step >> 32) & 0xFFFFFFFF)
     for kk0, kk1 in keys:
         p0, p1 = PHILOX_M[0] * c0, PHILOX_M[1] * c2
         c0, c1, c2, c3 = (p1 >> s32) ^ c1 ^ kk0, p1 & _M32, (p0 >> s32) ^ c3 ^ kk1, p0 & _M32
     bits1, bits2 = np.empty(2 * m, np.uint32), np.empty(2 * m, np.uint32)
     bits1[0::2], bits1[1::2], bits2[0::2], bits2[1::2] = c0, c2, c1, c3
-    return bits1[:n], bits2[:n]
+    lo = start - 2 * q0
+    return bits1[lo:lo + n], bits2[lo:lo + n]
 
 
 def _u32(bits):

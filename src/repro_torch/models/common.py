@@ -57,6 +57,20 @@ def tree_map(fn, tree, *rest):
     return fn(tree, *rest)
 
 
+def map_tensors(fn, tree, *rest):
+    """``fn`` on every tensor of a tree of dicts, tuples and NamedTuples (a
+    sampler state), with the matching leaves of ``rest``; other leaves (host
+    ints, None) as they are."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree, *rest)
+    if isinstance(tree, dict):
+        return {k: map_tensors(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        items = [map_tensors(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree)]
+        return type(tree)(*items) if hasattr(tree, "_fields") else tuple(items)
+    return tree
+
+
 def _materialize(spec: ParamSpec, generator, device) -> torch.Tensor:
     if spec.init == "zeros":
         return torch.zeros(spec.shape, dtype=spec.dtype, device=device)

@@ -39,8 +39,15 @@ ones advanced.  ``stream`` is the chunk-boundary snapshot hook of the
 serving refresher: because the carry is written in place, its snapshots
 are copies (the reference may hand out its immutable carry itself), and
 its readiness probe is a CUDA event, not a device scalar.
-Not ported yet (``NotImplementedError``): ``run_sharded``/``lower_sharded``
-(multi-GPU).  Capturing a chunk as a CUDA graph is later performance work.
+
+``run_sharded`` splits the chain axis over the ranks of a
+``torch.distributed`` ``DeviceMesh`` (DESIGN.md §7): each rank advances its
+local chains and the replicated center state, with the chain axis bound to
+the mesh's group, and the sampler's s-periodic exchange is the run's only
+collective.  Eager torch has no lowered program, so ``lower_sharded``
+raises: the one-collective-per-sync contract is read from the collective
+counter (``distributed.collective_counts``).  Capturing a chunk as a CUDA
+graph is later performance work.
 """
 from __future__ import annotations
 
@@ -52,6 +59,9 @@ import torch
 
 from repro_torch.core import rng as rnglib
 from repro_torch.core.tree_util import apply_updates, tree_leaves, tree_map
+from repro_torch.data.pipeline import place
+from repro_torch.distributed import collectives, sharding
+from repro_torch.models.common import map_tensors
 from repro_torch.obs import trace as obs_trace
 from repro_torch.diagnostics import (
     BatchMeansState,
@@ -119,22 +129,9 @@ def _sync(tree) -> None:
             torch.cuda.synchronize(d)
 
 
-def _map_tensors(fn, tree):
-    """``fn`` on every tensor of a tree of dicts, tuples and NamedTuples (a
-    sampler state); other leaves (host ints, None) as they are."""
-    if isinstance(tree, torch.Tensor):
-        return fn(tree)
-    if isinstance(tree, dict):
-        return {k: _map_tensors(fn, v) for k, v in tree.items()}
-    if isinstance(tree, tuple):
-        items = [_map_tensors(fn, v) for v in tree]
-        return type(tree)(*items) if hasattr(tree, "_fields") else tuple(items)
-    return tree
-
-
 def _copy(tree):
     """A copy of every tensor of a tree; host leaves are shared."""
-    return _map_tensors(lambda x: x.detach().clone(), tree)
+    return map_tensors(lambda x: x.detach().clone(), tree)
 
 
 def _probe(tree):
@@ -150,7 +147,7 @@ def _probe(tree):
 
 def _index(tree, i):
     """Run ``i`` of a swept tree: a view ``x[i]`` of every tensor."""
-    return _map_tensors(lambda x: x[i], tree)
+    return map_tensors(lambda x: x[i], tree)
 
 
 def _put(stacked, new, i):
@@ -205,7 +202,7 @@ class _Sweep:
         self.size = S = int(leaves[0].shape[0])
         for name, tree in (("params", params), ("state", state)):
             shapes = []
-            _map_tensors(lambda x: shapes.append(tuple(x.shape)), tree)
+            map_tensors(lambda x: shapes.append(tuple(x.shape)), tree)
             for shape in shapes:
                 if not shape or shape[0] != S:
                     raise ValueError(f"every tensor of the swept {name} needs a leading axis of "
@@ -534,11 +531,102 @@ class ChainExecutor:
             else:
                 yield ChunkSnapshot(t_abs, None, None, outs, _probe(params))
 
-    def run_sharded(self, *args, **kwargs):
-        raise NotImplementedError("run_sharded waits for multi-GPU chains in the port")
+    # -- chains across ranks -------------------------------------------------
+
+    @staticmethod
+    def _check_mesh(mesh, chain_axis: str, num_chains: int) -> None:
+        """The multi-rank contract (DESIGN.md §7): the chain axis must exist
+        on the mesh and divide K evenly; equal chain counts per rank are
+        what make the (local mean, mean over ranks) exchange the global
+        chain mean."""
+        ax = collectives.mesh_axis(mesh, chain_axis)
+        if num_chains % ax.size != 0:
+            raise ValueError(f"num_chains={num_chains} must be divisible by the "
+                             f"{chain_axis!r} mesh axis (size {ax.size})")
+
+    def run_sharded(
+        self,
+        params,
+        state,
+        *,
+        num_steps: int,
+        key,
+        mesh,
+        chain_axis: str = "chain",
+        num_chains: int | None = None,
+        start_step: int = 0,
+        specs=None,
+    ) -> RunResult:
+        """This rank's part of a run whose K chains are split over the
+        ``chain_axis`` dimension of ``mesh`` (a ``DeviceMesh``; every rank
+        calls it).  ``params`` and ``state`` are the rank's LOCAL chains
+        and the replicated center state (``distributed.local_chains`` of
+        the global tree, or the sampler's ``init`` of the global chains
+        sliced so); they are advanced in place, as in ``run``.  The sampler
+        must be built with ``chain_axis=<name>``: the name is bound to the
+        mesh's group for the run, so the sync's chain mean reduces over the
+        ranks with one collective.
+
+        The step key is ``fold_in(key, t)`` for absolute step t, the same
+        on every rank, whatever ``key_mode``; ``batch_fn(t)`` gives the
+        GLOBAL batch, of which ``data.place`` keeps the rank's chains.  The
+        run is chunked like ``run``, with the Welford moments of the local
+        chains in the carry (``moments``) and no traces, stats or ESS.
+        Returns the ``RunResult`` of the local chains.
+
+        ``num_chains``: the global K (default: local K times the axis
+        size).  ``specs``: a tree of the axis name or None per tensor of
+        ``{"params": params, "state": state}`` marking the split tensors,
+        overriding ``distributed.chain_specs``' shape rule; the split ones
+        must hold K / W chains."""
+        if self.sampler_factory is not None:
+            raise ValueError("run_sharded takes a sampler or a step_fn, not a sampler_factory")
+        ax = collectives.mesh_axis(mesh, chain_axis)
+        local_k = int(tree_leaves(params)[0].shape[0])
+        num_chains = int(num_chains or local_k * ax.size)
+        self._check_mesh(mesh, chain_axis, num_chains)
+        carry = {"params": params, "state": state}
+        if specs is None:
+            specs = sharding.chain_specs(carry, local_k, chain_axis)
+        shapes = []
+        map_tensors(lambda x, sp: shapes.append(tuple(x.shape)) if sp else None, carry, specs)
+        if any(not sh or sh[0] != num_chains // ax.size for sh in shapes):
+            raise ValueError(f"the split tensors must hold the rank's {num_chains // ax.size} "
+                             f"of {num_chains} chains; leading dims {[sh[:1] for sh in shapes]}")
+        step, _ = self._step(None)
+        device = tree_leaves(params)[0].device
+        wf = welford_init(params) if self.moments else None
+        t0 = time.perf_counter()
+        done, t_abs = 0, int(start_step)
+        with collectives.bind_axis(chain_axis, ax):
+            while done < num_steps:
+                n = min(self.chunk_steps, num_steps - done)
+                with obs_trace.get().span("executor.chunk", cat="executor", step=t_abs, n=n,
+                                          sharded=True):
+                    for _ in range(n):
+                        batch = None
+                        if self.batch_fn is not None:
+                            batch = place(self.batch_fn(t_abs), mesh, num_chains=num_chains,
+                                          axis=chain_axis, device=device)
+                        params, state, _m = step(params, state, batch,
+                                                 rnglib.fold_in(key, t_abs))
+                        if wf is not None and t_abs >= self.moments_from:
+                            wf = welford_add(wf, params)
+                        t_abs += 1
+                done += n
+        _sync(params)
+        return RunResult(params=params, state=state, trace=None, stats=None, metrics={},
+                         moments=wf, ess=None, steps=done, wall_s=time.perf_counter() - t0)
 
     def lower_sharded(self, *args, **kwargs):
-        raise NotImplementedError("lower_sharded waits for multi-GPU chains in the port")
+        """The reference lowers the sharded chunk to read its collectives
+        from the program text.  Eager torch has no lowered program: run
+        ``run_sharded`` and read ``distributed.collective_counts()``, which
+        counts every collective the port issues by op and bytes."""
+        raise NotImplementedError(
+            "lower_sharded: eager torch has no lowered program; read the collective counter "
+            "(repro_torch.distributed.collective_counts(), the distributed.collectives "
+            "metrics) around run_sharded instead")
 
 
 def ess_feedback_adapter(controller, hyper_key: str = "step_size"):

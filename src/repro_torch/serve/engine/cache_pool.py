@@ -15,9 +15,10 @@ of the reference's: freelist + refcounted prefix sharing + worst-case
 growth reservations).  Block tables and context lengths stay host-resident
 numpy and are copied to the device every tick.
 
-Slots can be parked (lifted out of the live pool) and restored.  Parking
-through the int8 codec (``compress_parked=True``) raises until the
-reference's ``distributed/compression.py`` is ported.
+Slots can be parked (lifted out of the live pool) and restored.  With
+``compress_parked=True`` a parked slot's float leaves go through the int8
+block codec (``distributed.int8_codec``; about 4x smaller than f32, 2x
+than bf16) and come back within its error bound; int leaves stay exact.
 """
 from __future__ import annotations
 
@@ -26,15 +27,21 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.distributed.compression import int8_codec
 from repro_torch.models.common import tree_leaves, tree_map
 from repro_torch.obs import trace as obs_trace
 
+_CODEC = int8_codec()
 
-def _no_compression(compress_parked: bool) -> None:
-    if compress_parked:
-        raise NotImplementedError(
-            "compress_parked needs the int8 codec of distributed/compression.py, not ported yet"
-        )
+
+def _pack(x, compress: bool):
+    """A parked leaf: the int8 encoding of a float tensor when ``compress``,
+    else the tensor."""
+    return _CODEC.encode(x) if compress and x.is_floating_point() else x
+
+
+def _unpack(x):
+    return _CODEC.decode(x) if isinstance(x, dict) else x
 
 
 def _batch_leaves(tree, stacked: bool = False):
@@ -50,10 +57,12 @@ def _batch_leaves(tree, stacked: bool = False):
 
 class ParkedCache(NamedTuple):
     """A slot's cache lifted out of the live pool: per cache leaf, the
-    (K, ...) slice of that slot, in ``_batch_leaves`` order, plus ``t``."""
+    (K, ...) slice of that slot, in ``_batch_leaves`` order (an int8
+    encoding when ``compressed``), plus ``t``."""
 
     leaves: list
     t: Any
+    compressed: bool = False
 
 
 class CachePool:
@@ -79,7 +88,7 @@ class CachePool:
     ):
         if num_members < 1 or num_slots < 1:
             raise ValueError("num_members and num_slots must be >= 1")
-        _no_compression(compress_parked)
+        self.compress_parked = bool(compress_parked)
         self.num_members = int(num_members)
         self.num_slots = int(num_slots)
         self.max_seq = int(max_seq)
@@ -132,15 +141,15 @@ class CachePool:
     # -- park / restore -----------------------------------------------------
 
     def park(self, slot: int, *, release: bool = True) -> ParkedCache:
-        """Copy slot ``slot``'s cache out of the live pool; ``release``
-        frees the slot."""
+        """Copy slot ``slot``'s cache out of the live pool, through the int8
+        codec with ``compress_parked``; ``release`` frees the slot."""
         with obs_trace.get().span("pool.park", cat="pool", slot=slot):
-            leaves = [parent[key].select(ax + 1, slot).clone()
+            leaves = [_pack(parent[key].select(ax + 1, slot).clone(), self.compress_parked)
                       for parent, key, ax in _batch_leaves(self.caches)]
             t = self.caches["t"][:, slot].clone()
             if release:
                 self.release(slot)
-            return ParkedCache(leaves, t)
+            return ParkedCache(leaves, t, self.compress_parked)
 
     def restore(self, parked: ParkedCache, slot: int | None = None) -> int:
         """Write a parked cache back into ``slot`` (or a newly acquired
@@ -149,9 +158,13 @@ class CachePool:
             slot = self.acquire()
         with obs_trace.get().span("pool.restore", cat="pool", slot=slot):
             for (parent, key, ax), x in zip(_batch_leaves(self.caches), parked.leaves):
-                parent[key].select(ax + 1, slot).copy_(x)
+                parent[key].select(ax + 1, slot).copy_(_unpack(x))
             self.caches["t"][:, slot] = parked.t
             return slot
+
+    @property
+    def compressed_parking(self) -> bool:
+        return self.compress_parked
 
     def can_admit(self, prompt, max_new: int, version: int = 0) -> bool:
         """Dense slots always fit a request that passed the max_seq guard."""
@@ -427,11 +440,12 @@ class BlockAllocator:
 
 class PagedParked(NamedTuple):
     """One slot's pages lifted out of the paged pool (gathered in logical
-    block order)."""
+    block order; int8 encodings when ``compressed``)."""
 
     leaves: list
     ctx: int
     num_pages: int
+    compressed: bool = False
 
 
 def _page_axis(leaf) -> int:
@@ -469,8 +483,8 @@ class PagedCachePool:
             raise ValueError("model has no paged decode surface (ModelDef.paged is None)")
         if num_members < 1 or num_slots < 1:
             raise ValueError("num_members and num_slots must be >= 1")
-        _no_compression(compress_parked)
         model.paged.check_support(cfg)
+        self.compress_parked = bool(compress_parked)
         self.cfg, self.model = cfg, model
         self.num_members = int(num_members)
         self.num_slots = int(num_slots)
@@ -558,17 +572,19 @@ class PagedCachePool:
 
     def park(self, slot: int, *, release: bool = True) -> PagedParked:
         """Gather (copy) this slot's pages out of the pool in logical block
-        order.  Shared prefix pages are COPIED, not moved."""
+        order, through the int8 codec with ``compress_parked``.  Shared
+        prefix pages are COPIED, not moved."""
         with obs_trace.get().span("pool.park", cat="pool", slot=slot):
             pages = self._slot_pages(slot)
             leaves = []
             for leaf in tree_leaves(self.caches):
                 idx = torch.tensor(pages, dtype=torch.long, device=leaf.device)
-                leaves.append(torch.index_select(leaf, _page_axis(leaf), idx))
+                leaves.append(_pack(torch.index_select(leaf, _page_axis(leaf), idx),
+                                    self.compress_parked))
             ctx = int(self.alloc.ctx[slot])
             if release:
                 self.release(slot)
-            return PagedParked(leaves, ctx, len(pages))
+            return PagedParked(leaves, ctx, len(pages), self.compress_parked)
 
     def restore(self, parked: PagedParked, slot: int | None = None,
                 max_new: int = 1) -> int:
@@ -593,8 +609,12 @@ class PagedCachePool:
             a._reserved[slot] = max(0, total - len(pages))
             for leaf, vals in zip(tree_leaves(self.caches), parked.leaves):
                 idx = torch.tensor(pages, dtype=torch.long, device=leaf.device)
-                leaf.index_copy_(_page_axis(leaf), idx, vals.to(leaf.dtype))
+                leaf.index_copy_(_page_axis(leaf), idx, _unpack(vals).to(leaf.dtype))
             return slot
+
+    @property
+    def compressed_parking(self) -> bool:
+        return self.compress_parked
 
     # -- stats ----------------------------------------------------------------
 

@@ -27,8 +27,9 @@ feeding the same registry) is bound at construction and pumped once per
 tick before the decode; promotions rebind the registry's members and take
 effect at the next member read.
 
-Left out of this port so far (they raise): ``mesh`` (multi-device layout)
-and ``compress_parked``.  The reference pins that decode is ONE compiled
+Left out of this port so far (it raises): ``mesh`` (multi-device layout,
+ROADMAP item 10b).  ``compress_parked`` parks idle slots through the int8
+codec.  The reference pins that decode is ONE compiled
 program; eager PyTorch has no counterpart of that pin (capturing the tick
 in a CUDA graph would be), so ``trace_counts`` here counts decode calls
 and admits per prompt length.

@@ -249,6 +249,34 @@ def test_philox_known_answers():
     assert b1.dtype == b2.dtype == np.uint32
 
 
+@pytest.mark.parametrize("start,n", [(0, 9), (1, 8), (7, 13), (8, 1), (3, 1)])
+def test_philox_bits_from_a_start_element_are_the_slice_of_the_full_draw(start, n):
+    full1, full2 = ref.philox_bits(0x5EED, 4, (1 << 32) + 3, start + n)
+    b1, b2 = ref.philox_bits(0x5EED, 4, (1 << 32) + 3, n, start)
+    np.testing.assert_array_equal(b1, full1[start:])
+    np.testing.assert_array_equal(b2, full2[start:])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [36, 37])  # the kernel's 4-wide and 1-wide paths
+def test_fused_chain_offset_draws_the_unsplit_runs_noise(dtype, n):
+    """A rank holding chains ``off..K-1`` of a split run updates them as
+    the unsplit run does: Philox counts the global element index."""
+    g = torch.Generator().manual_seed(n)
+    theta, p, grad = (torch.randn(4, n, generator=g).to(dtype) for _ in range(3))
+    c = torch.randn(n, generator=g).to(dtype)
+    hyper = dict(eps=1e-2, friction=1.0, mass=1.0, alpha=1.0, sigma_p=0.3, seed=rng.key(3),
+                 leaf=2, step=5)
+    t_all, p_all = ops.fused_ec_update(theta, p, grad.float(), c, **hyper)
+    for off in (1, 2, 3):
+        t_k, p_k = ops.fused_ec_update(theta[off:].contiguous(), p[off:].contiguous(),
+                                       grad[off:].float().contiguous(), c, chain_offset=off,
+                                       **hyper)
+        assert torch.equal(t_k, t_all[off:]) and torch.equal(p_k, p_all[off:]), off
+    with pytest.raises(ValueError, match="Philox counter"):
+        ops.fused_ec_update(theta, p, grad.float(), c, chain_offset=1 << 31, **hyper)
+
+
 def test_philox_mode_is_a_function_of_seed_leaf_step():
     theta, p, grad, c, _ = _operands(3)
     hyper = dict(eps=0.0, friction=0.0, mass=1.0, alpha=0.0, sigma_p=1.0)
@@ -378,3 +406,10 @@ def test_cuda_fused_kernel_matches_plain_version(card):
     b1, b2 = ref.philox_bits(7, 1, 3, z.numel())
     bits = [torch.from_numpy(b.view(np.int32)).to(card).view(z.shape) for b in (b1, b2)]
     assert torch.equal(a, ops.fused_ec_update(z, z, z, z[0], bits=bits, **hyper)[1])
+    # chain_offset: chains 1.. of a split run draw the unsplit run's noise
+    for n in (1000, 1001):  # the 4-wide and the 1-wide paths
+        z = torch.zeros((4, n), device=card)
+        full = ops.fused_ec_update(z, z, z, z[0], seed=7, leaf=1, step=3, **hyper)[1]
+        part = ops.fused_ec_update(z[1:], z[1:], z[1:], z[0], seed=7, leaf=1, step=3,
+                                   chain_offset=1, **hyper)[1]
+        assert torch.equal(part, full[1:]), n

@@ -8,6 +8,8 @@ same order).  The numpy ESS copy equals the reference's exactly.
 """
 from __future__ import annotations
 
+from types import SimpleNamespace
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -129,15 +131,20 @@ def test_step_fn_mode_and_batches():
 
 @pytest.mark.parametrize("call", ["sharded", "lower"])
 def test_unported_modes_raise(call):
+    """run_sharded is ported (tests/test_torch_sharding.py) and refuses a
+    mesh without the chain axis; lower_sharded has no lowered program in
+    eager torch and points to the collective counter."""
     samp = _sampler()
     ex = ChainExecutor(sampler=samp, grad_fn=lambda t, b: _grad(t), key_mode="fold")
     p0 = torch.zeros(4, 3)
-    # the sharded runs wait for multi-GPU chains
+    mesh = SimpleNamespace(mesh_dim_names=("data",))
     calls = {
-        "sharded": lambda: ex.run_sharded(p0, None, num_steps=1, key=1, mesh=None),
-        "lower": lambda: ex.lower_sharded(p0, None, num_steps=1, key=1, mesh=None),
+        "sharded": lambda: ex.run_sharded(p0, None, num_steps=1, key=1, mesh=mesh),
+        "lower": lambda: ex.lower_sharded(p0, None, num_steps=1, key=1, mesh=mesh),
     }
-    with pytest.raises(NotImplementedError):
+    expected = {"sharded": (ValueError, "no 'chain' axis"),
+                "lower": (NotImplementedError, "collective counter")}
+    with pytest.raises(expected[call][0], match=expected[call][1]):
         calls[call]()
 
 

@@ -524,7 +524,8 @@ def entry(name):
         return 0
     return fn
 lib = types.SimpleNamespace(**{n: entry(n) for n in (
-    "flash_attention_fwd", "paged_attention_fwd", "bma_select_fwd", "rglru_scan_fwd")})
+    "flash_attention_fwd", "paged_attention_fwd", "bma_select_fwd", "rglru_scan_fwd",
+    "fused_ec_update", "fused_precond_ec_update")})
 _build.library = lambda name: lib
 ops._on_card = lambda *t: True
 torch.cuda.current_stream = lambda device=None: types.SimpleNamespace(cuda_stream=0)
@@ -538,6 +539,14 @@ elif WRAPPER == "paged_attention":
 elif WRAPPER == "fused_bma_select":
     ops.fused_bma_select(torch.zeros((4, 3, 5000)), torch.Generator().manual_seed(0),
                          mode="logprobs", temperature=0.7, top_k=50)
+elif WRAPPER == "fused_ec_update":  # chains 2 and 3 of a split run, Philox mode
+    z = torch.zeros((2, 12))
+    ops.fused_ec_update(z, z, z, z[0], eps=1e-2, friction=1.0, mass=1.0, alpha=1.0, sigma_p=0.1,
+                        seed=9, leaf=1, step=3, chain_offset=2)
+elif WRAPPER == "fused_precond_ec_update":
+    z = torch.zeros((2, 12))
+    ops.fused_precond_ec_update(z, z, z, z[0], z, eps=1e-2, friction=1.0, alpha=1.0,
+                                sigma_p=0.1, seed=9, leaf=1, step=3)
 else:  # an f16 a with an f32 x: the kernel reads both as f32
     ops.rglru_scan(torch.zeros((2, 8, 32), dtype=torch.float16), torch.zeros((2, 8, 32)))
 (name, args), = calls
@@ -550,7 +559,8 @@ print(json.dumps(dict(name=name, kinds=kinds, launches=ops.launches[counter],
 """
 
 _SOURCES = {"flash_attention": "flash_attention", "paged_attention": "paged_attention",
-            "fused_bma_select": "bma_select", "rglru_scan": "rglru"}
+            "fused_bma_select": "bma_select", "rglru_scan": "rglru",
+            "fused_ec_update": "fused_ecsghmc", "fused_precond_ec_update": "fused_ecsghmc"}
 
 
 def _c_signature(source: str, entry: str):
@@ -564,12 +574,12 @@ def _c_signature(source: str, entry: str):
     for p in params.split(","):
         decl = " ".join(p.split()[:-1])
         kinds.append("ptr" if "*" in p else "float" if decl == "float"
-                     else "int64" if decl == "long long" else "int32")
+                     else "int64" if decl.endswith("long long") else "int32")
     return kinds
 
 
 @pytest.mark.parametrize("wrapper", ["flash_attention", "paged_attention", "fused_bma_select",
-                                     "rglru_scan"])
+                                     "rglru_scan", "fused_ec_update", "fused_precond_ec_update"])
 def test_card_branch_reaches_the_c_entry(wrapper):
     import json
     import subprocess
@@ -588,6 +598,10 @@ def test_card_branch_reaches_the_c_entry(wrapper):
         assert got["args"][6:10] == [4, 3, 5000, 1] and got["args"][11] == 50
     if wrapper == "rglru_scan":  # (B, S, R, is_bf16)
         assert got["args"][4:8] == [2, 8, 32, 0]
+    if wrapper == "fused_ec_update":  # (K, N, chain_offset), then seed, leaf, step
+        assert got["args"][8:11] == [2, 12, 2] and got["args"][14:17] == [9, 1, 3]
+    if wrapper == "fused_precond_ec_update":  # (K, N), no chain_offset
+        assert got["args"][9:11] == [2, 12] and got["args"][14:17] == [9, 1, 3]
 
 
 def test_bma_scratch_words():

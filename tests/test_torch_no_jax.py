@@ -1,4 +1,5 @@
-"""The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
+"""The port stands alone: ``repro_torch``, ``chip_smoke.py`` and the rank
+functions of the multi-rank tests (``tests/torch_shard_workers.py``) import
 neither jax nor anything of the reference package ``repro``."""
 from __future__ import annotations
 
@@ -23,7 +24,10 @@ def test_importing_every_module_loads_no_jax():
     assert "repro_torch.serve.engine.engine" in mods and len(mods) > 20
     assert {"repro_torch.core.async_sghmc", "repro_torch.core.ec_sgld", "repro_torch.core.easgd",
             "repro_torch.core.recipe", "repro_torch.models.mlp", "repro_torch.models.resnet",
-            "repro_torch.data.pipeline", "repro_torch.data.synthetic"} <= set(mods)
+            "repro_torch.data.pipeline", "repro_torch.data.synthetic",
+            "repro_torch.distributed", "repro_torch.distributed.compression",
+            "repro_torch.distributed.collectives", "repro_torch.distributed.sharding",
+            "repro_torch.launch.mesh"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -44,7 +48,10 @@ _FORBIDDEN = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro\.|from
 
 
 def test_sources_name_no_jax_or_reference_import():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    # the rank functions of the multi-rank tests run in spawned processes
+    # that must stay as light as the port
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                          ROOT / "tests" / "torch_shard_workers.py"]
     hits = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
             for f in files for m in _FORBIDDEN.finditer(f.read_text())]
     assert not hits, hits

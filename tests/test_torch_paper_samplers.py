@@ -219,10 +219,17 @@ def test_ec_sgld_draws_its_own_noise():
     assert torch.equal(a, b) and not torch.equal(a, c)
 
 
-@pytest.mark.parametrize("kw", [dict(chain_axis="chains"), dict(per_chain_noise=True)])
+@pytest.mark.parametrize("kw", [dict(chain_axis="chains"),
+                                dict(chain_axis="chains", per_chain_noise=True)])
 def test_ec_sgld_unported_options_raise(kw):
-    with pytest.raises(NotImplementedError):
-        core.ec_sgld(step_size=0.1, **kw)
+    """The chain-axis options are ported (tests/test_torch_sharding.py,
+    tests/test_torch_distributed_samplers.py); outside the run_sharded
+    that binds the axis name the update raises, as an unbound axis name
+    does in JAX."""
+    samp = core.ec_sgld(step_size=0.1, **kw)
+    p = torch.zeros(4, 3)
+    with pytest.raises(NameError, match="unbound axis name"):
+        samp.update(torch.zeros(4, 3), samp.init(p), p, rng.key(0))
 
 
 # --- the EASGD family -------------------------------------------------------------

@@ -138,8 +138,8 @@ def test_unported_options_raise(setup):
     # refuse is one that feeds another registry, as the reference refuses it
     with pytest.raises(ValueError, match="refresher must feed"):
         ServeEngine(cfg, model, members, refresher=SimpleNamespace(registry=None), **kw)
-    with pytest.raises(NotImplementedError, match="compress_parked"):
-        ServeEngine(cfg, model, members, compress_parked=True, **kw)
+    # compressed parking is ported (the int8 codec): the pool parks through it
+    assert ServeEngine(cfg, model, members, compress_parked=True, **kw).pool.compressed_parking
 
 
 def test_engine_defaults_to_cuda(setup):
@@ -213,3 +213,91 @@ def test_registry_spread_gate_matches_reference(setup):
     assert reg.propose(tree_map(lambda a: a.flip(0), members)) and reg.version == 1
     with pytest.raises(ValueError, match="collapsed"):
         SnapshotRegistry(collapsed, validate=True)
+
+
+def _float_paths(tree, path=()):
+    """(path, leaf) of every float leaf of a nested dict of caches."""
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            yield from _float_paths(v, path + (k,))
+        elif v.is_floating_point():
+            yield path + (k,), v
+
+
+def _at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+def test_compressed_park_restore_matches_reference_pool(setup, paged):
+    """The int8 parking of ``tests/test_serve_engine.py:684-725`` (dense)
+    and ``tests/test_paged_cache.py:356-367`` (paged) against the
+    reference's pool: the same random slot contents park and restore
+    through both codecs to within 0.05 of the original and of each other,
+    and a second park/restore lands on the same quantization points, bit
+    for bit."""
+    from repro.serve.engine.cache_pool import CachePool as JCachePool
+    from repro.serve.engine.cache_pool import PagedCachePool as JPagedCachePool
+    from repro_torch.serve.engine.cache_pool import CachePool, PagedCachePool
+
+    jcfg, jmodel, _, cfg, model, _ = setup
+    kw = dict(num_members=2, num_slots=2, max_seq=32, compress_parked=True)
+    if paged:
+        kw["block_size"] = 8
+        jpool, pool = JPagedCachePool(jcfg, jmodel, **kw), PagedCachePool(cfg, model, device="cpu",
+                                                                          **kw)
+    else:
+        jpool, pool = JCachePool(jcfg, jmodel, **kw), CachePool(cfg, model, device="cpu", **kw)
+    slot, jslot = pool.acquire(), jpool.acquire()
+    assert slot == jslot
+    if paged:
+        prompt = np.arange(9, dtype=np.int32)
+        pool.admit_blocks(slot, prompt, 4)
+        jpool.admit_blocks(jslot, prompt, 4)
+    r = np.random.default_rng(3)
+    jcaches = jpool.caches
+    for path, leaf in _float_paths(pool.caches):
+        vals = r.normal(size=leaf.shape).astype(np.float32)
+        leaf.copy_(torch.from_numpy(vals))
+        jleaf = _at(jcaches, path)
+        if not paged:  # the reference pools batch-1 caches: (K, slot, ..., 1, ...)
+            ax = 1 + (path[0] == "layers")
+            vals = np.expand_dims(np.moveaxis(vals, ax, 1), ax + 1)
+        assert jleaf.shape == vals.shape, path
+        jcaches = jax.tree_util.tree_map(lambda x: x, jcaches)
+        _at(jcaches, path[:-1])[path[-1]] = jax.numpy.asarray(vals, jleaf.dtype)
+    jpool.caches = jcaches
+
+    def port_slot(s):
+        if paged:
+            row = pool.alloc.tables[s]
+            idx = torch.tensor(row[row != 0], dtype=torch.long)
+            return [leaf.index_select(leaf.ndim - 4, idx).clone()
+                    for _, leaf in _float_paths(pool.caches)]
+        return [leaf.select(1 + (p[0] == "layers"), s).clone()
+                for p, leaf in _float_paths(pool.caches)]
+
+    def ref_slot(s):
+        if paged:
+            row = jpool.tables[s]
+            idx = np.asarray(row[row != 0])
+            return [np.take(np.asarray(_at(jpool.caches, p)), idx, axis=leaf.ndim - 4)
+                    for p, leaf in _float_paths(pool.caches)]
+        return [np.asarray(_at(jpool.caches, p))[:, s] for p, _ in _float_paths(pool.caches)]
+
+    orig = port_slot(slot)
+    restore = (lambda pl, pk: pl.restore(pk, max_new=4)) if paged else (lambda pl, pk: pl.restore(pk))
+    parked = pool.park(slot)
+    assert parked.compressed and all(isinstance(x, dict) for x in parked.leaves)
+    slot = restore(pool, parked)
+    jslot = restore(jpool, jpool.park(jslot))
+    once, jonce = port_slot(slot), ref_slot(jslot)
+    for o, a, b in zip(orig, once, jonce):
+        np.testing.assert_allclose(a.numpy(), o.numpy(), atol=0.05)
+        np.testing.assert_allclose(a.numpy().reshape(-1), b.reshape(-1), atol=0.05)
+    slot = restore(pool, pool.park(slot))
+    for a, b in zip(once, port_slot(slot)):
+        assert torch.equal(a, b)

@@ -9,6 +9,9 @@ Their pooled moments are gated against ``repro.diagnostics``' closed-form
 oracle for the discrete-time recursion with the battery's 3-sigma bands,
 sized from the conservative coupled-chain ESS.
 
+The int8-center case (``test_alpha1_int8_center_exchange``, slow as the
+reference's is) holds the compressed exchange to the same bands.
+
 The oracle's numbers that ``chip_smoke.py`` carries for its on-card case
 are pinned here to the oracle itself.
 """
@@ -96,6 +99,22 @@ def test_alpha1(s):
 def test_alpha1_s1_fused():
     traj, oracle = _ec_case(1.0, 1, fused=True, steps=30_000)
     assert_matches_oracle(traj, oracle, check_cross=True, label="ec-fused-a1-s1")
+
+
+@pytest.mark.slow
+def test_alpha1_int8_center_exchange():
+    """``tests/test_stationary.py``'s compressed-exchange gate: EC-SGHMC
+    whose s-periodic exchange round-trips through the int8 codec holds the
+    same closed-form bands; the <= scale/2 quantization error is absorbed
+    into the center-noise covariance C of Eq. 6."""
+    from repro_torch.distributed import int8_codec
+
+    sampler = core.ec_sghmc(step_size=0.1, alpha=1.0, sync_every=4, compression=int8_codec(),
+                            **EC_KW)
+    traj = run_chains(sampler, steps=40_000, burn=4_000, seed=21)
+    oracle = jdiag.ec_sghmc_stationary(step_size=0.1, alpha=1.0, num_chains=K, sync_every=4,
+                                       precision=LAM, mu=MU, **EC_KW)
+    assert_matches_oracle(traj, oracle, check_cross=True, label="ec-int8-a1-s4")
 
 
 def test_chip_smoke_oracle_constants_are_the_oracle():

@@ -30,8 +30,10 @@ from repro.models import layers as jlayers
 from repro.train import loop as jloop
 from repro.train.step import make_train_step as jmake_train_step
 from repro_torch import _interop, configs, core
+from repro_torch.core import rng
 from repro_torch.core.potential import value_and_grad
 from repro_torch.data import chain_batches, synthetic_token_stream, token_batch
+from repro_torch.distributed import int8_codec
 from repro_torch.launch import default_sampler
 from repro_torch.models import get_model, layers, tree_leaves
 from repro_torch.train import LoopConfig, loop, make_train_step
@@ -256,8 +258,15 @@ def test_default_sampler():
     assert st.momentum["w"].dtype == cfg.param_dtype
     assert isinstance(default_sampler(cfg, "qwen3-0.6b", 1).init({"w": torch.zeros(3)}),
                       core.SGHMCState)
-    with pytest.raises(NotImplementedError):
-        default_sampler(cfg, "qwen3-0.6b", 4, compress_sync=True)
+    # the int8 center exchange: the sync's chain mean lands on the codec's grid
+    comp = default_sampler(cfg, "qwen3-0.6b", 4, compress_sync=True, sync_every=1,
+                           step_size=1e-2)
+    p = {"w": torch.linspace(-1.0, 1.0, 4 * 300).reshape(4, 300)}
+    up, st = comp.update({"w": torch.zeros(4, 300)}, comp.init(p), p, rng.key(0))
+    mth = st.mean_theta_stale["w"]
+    codec = int8_codec()
+    assert torch.equal(codec.decode(codec.encode(mth)), mth)
+    assert not torch.equal(mth, torch.mean(p["w"] + up["w"], dim=0))
 
 
 def test_token_stream_law():
