@@ -26,7 +26,11 @@ It imports torch, numpy and repro_torch only, and:
    the RG-LRU scan
    bit for bit up to a 32k-token prompt, with an R that is not made of
    16-byte pieces, and with f16 and mixed-dtype inputs (``[rglru]``); the
-   select and scan rows also by device time per call;
+   select and scan rows also by device time per call; and the text
+   families' shapes: flash at h2o-danube's d 80, at gemma3's 1536-token
+   prompt under its window of 1024, at grok's G 6 with softcap 30; paged
+   decode at olmoe's G 1 and grok's G 6 with softcap 30; the select kernel
+   greedy at V 32,000, 50,304, 131,072 and 262,144;
 4. the sampler: holds the fused kernel against its plain version bit for
    bit at every leaf shape of the paper's MLP and ResNet-32 at K = 6, in
    both noise modes, with each shape's time beside its bound, checks the
@@ -58,7 +62,17 @@ It imports torch, numpy and repro_torch only, and:
    checks the launch counts of the scan, flash and bma_select kernels,
    profiles a short run, and holds the SMOKE hybrid engine on the card
    against the CPU;
-9. serving meets sampling: ``launch.serve.main`` at full-width qwen3-0.6b
+9. the rest of the text families: h2o-danube-1.8b at full width and
+   depth (K = 4), gemma2-27b and gemma3-27b at their published widths cut
+   to 8 layers (K = 2) on the dense engine (``[slice-dense]``), greedily
+   over 8 requests of 16 new tokens, with exact launch counts, paged
+   refused, and gemma3's published window held with a 1536-token prompt
+   in f32 (the flash engine against the plain one); olmoe-1b-7b at full
+   width and depth (K = 4) and grok-1-314b at its published width cut to 2
+   layers (K = 1) on the paged engine (``[slice-moe]``), greedy and (olmoe)
+   at T=0.7/top-k 50, with exact launch counts; each SMOKE engine on the
+   card against the CPU, and SMOKE olmoe training (the MoE backward);
+10. serving meets sampling: ``launch.serve.main`` at full-width qwen3-0.6b
    with K = 4 and overlapped live refresh, then its ensemble path
    (``[serve-launch]``); the ``[slice]`` engine and 8 of its trace's
    requests frozen, with the sync ``ChainRefresher`` and with the
@@ -69,18 +83,18 @@ It imports torch, numpy and repro_torch only, and:
    resumed bit for bit, a timed save/restore, a truncated checkpoint and
    an elastic restore (``[ckpt]``); ``launch.train.main`` at full width
    (``[launch-train]``);
-10. the paper's own experiments: Fig. 1's seeds as swept runs
+11. the paper's own experiments: Fig. 1's seeds as swept runs
    (``ChainExecutor.run(..., sweep=True)``), each held bitwise against its
    member run (``[sweep]``); the MLP and ResNet-32 at a small width, fused
    EC-SGHMC and Async SGHMC with the noise handed in, on the card against
    the CPU (``[smoke-paper]``); and Fig. 2 at the paper's widths through
    ``ChainExecutor`` and ``ShardedLoader``: the 2x800 MLP on synthetic
    MNIST (SGHMC, and K = 6 fused EC-SGHMC and Async SGHMC at s = 1 and 8,
-   1000 steps, ``[paper-mlp]``) and ResNet-32 at width 16 on synthetic
-   CIFAR-10 (SGHMC and fused EC-SGHMC at s = 4, 400 steps,
+   500 steps, ``[paper-mlp]``) and ResNet-32 at width 16 on synthetic
+   CIFAR-10 (SGHMC and fused EC-SGHMC at s = 4, 240 steps,
    ``[paper-resnet]``), with the predictive and BMA NLL on the test set at
    every evaluation and the kernel's launches per job;
-11. chains across ranks: the int8 center-exchange codec at the size of the
+12. chains across ranks: the int8 center-exchange codec at the size of the
    full-width exchange, the card's bytes equal to the CPU port's, with
    encode and decode times against the byte bound (``[codec]``, after
    ``[philox]``, which also holds the kernel's ``chain_offset`` against
@@ -92,8 +106,8 @@ It imports torch, numpy and repro_torch only, and:
    the one card at the SMOKE size against a single-process run
    (``[shard-2rank]``); and compressed parking on the full-width paged
    engine (``[park]``);
-12. prints one JSON line of the six kernels, the card line, and the result
-   line.
+13. prints one JSON line of the six kernels (the serving kernels with their
+   launches on each serving path), the card line, and the result line.
 
 TF32 is off for matmuls and cuDNN (``allow_tf32 = False``), so f32
 products are full f32.  The caching allocator runs with expandable
@@ -304,6 +318,11 @@ def build_report(build_log: dict, libs: dict) -> tuple[str, dict]:
 FLASH_CASES = ((64, None, None), (100, None, None), (128, None, None),
                (128, None, 50.0))  # (S, window, softcap): ragged S = 100; gemma2's softcap 50
 FLASH256_CASES = ((64, 2048, None), (128, 2048, None), (128, 16, None))
+# the text families of slice 10, (Hq, Hkv, d, cases): h2o-danube's d 80
+# (padded to 128) under its window; gemma3's local window of 1024 at a
+# 1536-token prompt (32 q over 16 kv heads); grok's softcap 30 at G 6
+FLASH_FAMILY_CASES = ((32, 8, 80, ((128, 4096, None),)), (32, 16, 128, ((1536, 1024, None),)),
+                      (48, 8, 128, ((128, None, 30.0),)))
 
 
 def phase_flash(torch, ops, ref, F, *, Hq=16, Hkv=8, d=128, cases=FLASH_CASES,
@@ -315,7 +334,8 @@ def phase_flash(torch, ops, ref, F, *, Hq=16, Hkv=8, d=128, cases=FLASH_CASES,
     bound, by CUDA events and by device time per launch.  SDPA gets the
     causal flag where the window cuts nothing, else the same causal band as
     a boolean mask; it has no softcap, so a softcap row has no library
-    time."""
+    time.  A head dim the kernel does not instantiate (h2o-danube's 80) is
+    timed on inputs zero-padded as ``ops.flash_attention`` pads them."""
     import repro_torch.kernels.flash_attention as fa
 
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -334,8 +354,10 @@ def phase_flash(torch, ops, ref, F, *, Hq=16, Hkv=8, d=128, cases=FLASH_CASES,
         if not (err <= FLASH_ATOL and torch.isfinite(got).all()):
             raise AssertionError(f"{label} S={S} window={window} softcap={softcap}: "
                                  f"max|kernel - plain| = {err} > {FLASH_ATOL}")
-        out = torch.empty_like(q)
-        kernel = lambda: fa.launch(q, k, v, out, **kw)  # noqa: E731
+        dp = ops._padded_head_dim(d, ops.FLASH_HEAD_DIMS)
+        qp, kp, vp = (ops._pad_last(t, dp) for t in (q, k, v))
+        out = torch.empty_like(qp)
+        kernel = lambda: fa.launch(qp, kp, vp, out, **kw)  # noqa: E731
         ms, dev = time_ms(torch, kernel), device_ms(torch, kernel)
         plain = time_ms(torch, lambda: ref.attention(q, k, v, **kw))
         pos = torch.arange(S, device="cuda")
@@ -355,7 +377,8 @@ def phase_flash(torch, ops, ref, F, *, Hq=16, Hkv=8, d=128, cases=FLASH_CASES,
             f"bf16: max_abs_err={err:.3e} (atol {FLASH_ATOL}) kernel {ms:.4f} ms (device "
             f"{fmt_ms(dev)}), plain {plain:.4f} ms, sdpa {fmt_ms(lib)} (device {fmt_ms(lib_dev)}), "
             f"bound {b_ms:.5f} ms ({b_by})")
-        rows.append(dict(S=S, window=window, softcap=softcap, err=err, ms=ms, device_ms=dev,
+        rows.append(dict(Hq=Hq, Hkv=Hkv, d=d, S=S, window=window, softcap=softcap, err=err,
+                         ms=ms, device_ms=dev,
                          plain_ms=plain, library_ms=lib, library_device_ms=lib_dev,
                          bound_ms=b_ms, bound_by=b_by))
     return rows
@@ -383,34 +406,41 @@ def paged_inputs(torch, g, *, B, Hkv, G, d, bs, M, ctx, dtype, done_slots=()):
 PAGED_CASES = (("path", "bfloat16", np.linspace(1, 159, 8).astype(np.int32), None),
                ("ragged, window 40", "bfloat16", [0, 3, 15, 16, 47, 90, 131, 159], 40),
                ("path f32", "float32", np.linspace(1, 159, 8).astype(np.int32), None))
+# the MoE family's decode shapes, (Hkv, G, softcap, cases): olmoe is MHA
+# (16 q over 16 kv heads, G 1); grok has 48 q over 8 kv heads (G 6) and a
+# softcap of 30; both at the slice's context lengths
+PAGED_MOE_CASES = (
+    (16, 1, None, (("olmoe G=1", "bfloat16", np.linspace(1, 143, 8).astype(np.int32), None),)),
+    (8, 6, 30.0, (("grok G=6 softcap 30", "bfloat16", np.linspace(1, 143, 8).astype(np.int32),
+                   None),)))
 
 
-def phase_paged(torch, ops, ref):
-    """The paged-decode kernel against its plain version at every
-    PAGED_CASES row, timed by CUDA events and by device time per launch;
-    the first row is the kernel's entry in the result line."""
+def phase_paged(torch, ops, ref, *, Hkv=8, G=2, softcap=None, cases=PAGED_CASES, seed=12):
+    """The paged-decode kernel against its plain version at every row of
+    ``cases`` (the qwen3 serving path's heads by default), timed by CUDA
+    events and by device time per launch; the first default row is the
+    kernel's entry in the result line."""
     import repro_torch.kernels.paged_attention as pa
 
-    g = torch.Generator(device="cuda").manual_seed(12)
-    B, Hkv, G, d, bs, M = 8, 8, 2, 128, 16, 10
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    B, d, bs, M = 8, 128, 16, 10
     rows = []
-    for label, dtype, ctx_in, window in PAGED_CASES:
+    for label, dtype, ctx_in, window in cases:
         (q, kp, vp, tables, ctx), ctx_np = paged_inputs(
             torch, g, B=B, Hkv=Hkv, G=G, d=d, bs=bs, M=M, ctx=ctx_in,
             dtype=getattr(torch, dtype), done_slots=(0,) if window else ())
         scale = 1.0 / math.sqrt(d)
-        got = ops.paged_attention(q, kp, vp, tables, ctx, scale=scale, window=window)
-        want = ref.paged_attention(q, kp, vp, tables, ctx, scale=scale, window=window)
+        kw = dict(scale=scale, window=window, softcap=softcap)
+        got = ops.paged_attention(q, kp, vp, tables, ctx, **kw)
+        want = ref.paged_attention(q, kp, vp, tables, ctx, **kw)
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
         if not (err <= PAGED_ATOL and torch.isfinite(got).all()):
             raise AssertionError(f"paged {label}: max|kernel - plain| = {err} > {PAGED_ATOL}")
         out = torch.empty_like(q)
-        kernel = lambda: pa.launch(q, kp, vp, tables, ctx, out, scale=scale,  # noqa: E731
-                                   window=window, softcap=None)
+        kernel = lambda: pa.launch(q, kp, vp, tables, ctx, out, **kw)  # noqa: E731
         ms, dev = time_ms(torch, kernel), device_ms(torch, kernel)
-        plain = time_ms(torch, lambda: ref.paged_attention(q, kp, vp, tables, ctx, scale=scale,
-                                                           window=window))
+        plain = time_ms(torch, lambda: ref.paged_attention(q, kp, vp, tables, ctx, **kw))
         c = ctx_np.astype(np.int64)
         keys = int((np.minimum(c + 1, window) if window else c + 1).sum())
         isz = q.element_size()
@@ -418,10 +448,11 @@ def phase_paged(torch, ops, ref):
         flops = 4 * keys * Hkv * G * d
         b_ms, b_by = bound(nbytes, flops, BF16_FLOPS_PER_S if isz == 2 else F32_FLOPS_PER_S)
         log(f"[paged] {label}: slots={B} Hkv={Hkv} G={G} d={d} bs={bs} ctx={ctx_np.tolist()} "
-            f"window={window} {dtype}: max_abs_err={err:.3e} (atol {PAGED_ATOL}) kernel "
+            f"window={window} softcap={softcap} {dtype}: max_abs_err={err:.3e} (atol {PAGED_ATOL}) kernel "
             f"{ms:.4f} ms (device {fmt_ms(dev)}), plain {plain:.4f} ms, bound {b_ms:.5f} ms "
             f"({b_by})")
-        rows.append(dict(case=label, dtype=dtype, window=window, err=err, ms=ms, device_ms=dev,
+        rows.append(dict(case=label, Hkv=Hkv, G=G, softcap=softcap, dtype=dtype, window=window,
+                         err=err, ms=ms, device_ms=dev,
                          plain_ms=plain, library_ms=None, bound_ms=b_ms, bound_by=b_by))
     return rows
 
@@ -447,13 +478,17 @@ def bma_tied_logits(torch, g, K, S, V):
     return (level[None] * w[:, None, None] + 0.5 * w[:, None, None]).contiguous()
 
 
-def phase_bma(torch, ops, ref, *, V=151936, label="bma", seed=13):
+BMA_FAMILY_VOCABS = (32000, 50304, 131072, 262144)  # h2o-danube, olmoe, grok, gemma3
+
+
+def phase_bma(torch, ops, ref, *, V=151936, label="bma", seed=13, cases=BMA_ROWS):
     """The select kernel against its plain version at K=4, S=8 over a
     model's vocabulary (qwen3-0.6b's by default; ``[bma256k]`` is
     recurrentgemma-2b's), in both modes, at every BMA_ROWS row: logp within
     BMA_LOGP_ATOL, tokens equal except where the plain version's top two
     selection values lie within that tolerance; timed by CUDA events and by
-    device time per call (the sum of its kernels)."""
+    device time per call (the sum of its kernels).  ``cases`` narrows the
+    rows (the text families' vocabularies run the greedy row)."""
     import repro_torch.kernels.bma_select as bs_mod
     from repro_torch.serve.sampling import _top_k_mask, gumbel_noise
 
@@ -465,7 +500,7 @@ def phase_bma(torch, ops, ref, *, V=151936, label="bma", seed=13):
     gumbel = gumbel_noise((S, V), g, "cuda")
     rows = []
     for mode in ("probs", "logprobs"):
-        for case, T, top_k, kind in BMA_ROWS:
+        for case, T, top_k, kind in cases:
             top_k = V if top_k < 0 else top_k
             lg = inputs[kind]
             gum = gumbel if T > 0 else None
@@ -593,21 +628,23 @@ def phase_rglru(torch, ops, ref):
 
 
 def stacked_members(torch, cfg, model, K, device, seed0=0):
-    """K members, member k drawn from a generator seeded seed0 + k, written
-    into preallocated (K, ...) leaves: the peak is the stack plus one
-    member (recurrentgemma-2b: 46.3 + 11.6 GB)."""
-    from repro_torch.models import init_params, tree_map
+    """K members, member k drawn from a generator seeded seed0 + k, each
+    leaf written into the preallocated (K, ...) stack as soon as it is
+    drawn: the values of ``init_params`` (the same draws in the same
+    order), and a peak of the stack plus one leaf and its f32 draw
+    (olmoe-1b-7b: 55.4 + 12.9 GB; a whole member at a time was 55.4 + 13.8
+    GB plus that draw)."""
+    from repro_torch.models import init_params, tree_leaves
+    from repro_torch.models.common import tree_unflatten
 
-    members = None
+    specs = model.param_specs(cfg)
+    leaves = tree_leaves(specs)
+    stack = [torch.empty((K,) + tuple(sp.shape), dtype=sp.dtype, device=device) for sp in leaves]
     for k in range(K):
         gen = torch.Generator(device=device).manual_seed(seed0 + k)
-        p = init_params(model.param_specs(cfg), gen, device)
-        if members is None:
-            members = tree_map(lambda a: torch.empty((K,) + tuple(a.shape), dtype=a.dtype,
-                                                     device=device), p)
-        tree_map(lambda dst, src: dst[k].copy_(src), members, p)
-        del p
-    return members
+        for sp, dst in zip(leaves, stack):
+            dst[k].copy_(init_params(sp, gen, device))
+    return tree_unflatten(specs, stack)
 
 
 def check_report(rep, trace, V, label):
@@ -622,13 +659,25 @@ def check_report(rep, trace, V, label):
             raise AssertionError(f"{label}: request {r.rid} has non-finite log-probs")
 
 
-def serve_slice(torch, card, arch, *, paged, kernels, tag, seed0=0):
-    """A model's K-member ensemble at full width, K members from seeded
-    generators, served through ``ServeEngine.run`` with the flash kernel
-    over a 16-request trace (prompts of 64 and 128 tokens, 32 new tokens
-    each): a warm-up, then a greedy and a T=0.7/top-k 50 run, each with
-    every launch count set to 0 just before it and read just after.  Fails
-    if a kernel of ``kernels`` was launched no time in either run."""
+def warmup_trace(vocab_size):
+    """Two requests, one of each prompt length, arriving together, with 2
+    new tokens each: a run's shapes (cuBLAS handles, allocator pools) in
+    two ticks, where the first two requests of a trace take 32."""
+    from repro_torch.serve.engine import synthetic_trace
+
+    return synthetic_trace(2, vocab_size=vocab_size, prompt_lens=(64, 128), max_new=2,
+                           mean_interarrival=1e-3, seed=0)
+
+
+def serve_slice(torch, card, arch, *, paged, kernels, tag, seed0=0, layers=None, requests=16,
+                max_new=32, sampled=True):
+    """A model's K-member ensemble at full width (depth cut to ``layers``
+    where given), K members from seeded generators, served through
+    ``ServeEngine.run`` with the flash kernel over a trace of ``requests``
+    requests (prompts of 64 and 128 tokens, ``max_new`` new tokens each):
+    a warm-up, then a greedy and (``sampled``) a T=0.7/top-k 50 run, each
+    with every launch count set to 0 just before it and read just after.
+    Fails if a kernel of ``kernels`` was launched no time in a run."""
     from repro_torch import configs
     from repro_torch.kernels import launches, reset_launches
     from repro_torch.models import get_model
@@ -636,17 +685,25 @@ def serve_slice(torch, card, arch, *, paged, kernels, tag, seed0=0):
     from repro_torch.serve.sampling import SamplingParams
 
     cfg = configs.get_config(arch).replace(use_flash_kernel=True)
+    depth = f"{cfg.num_layers} layers"
+    if layers is not None:
+        depth = f"{layers} of its {cfg.num_layers} layers"
+        cfg = cfg.replace(num_layers=layers)
     model = get_model(cfg)
     K = configs.EC_CHAINS[arch]
     log(f"[{tag}] device memory before the phase: {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
     members = stacked_members(torch, cfg, model, K, "cuda", seed0=seed0)
     torch.cuda.synchronize()
-    log(f"[{tag}] {arch} full width ({cfg.num_layers} layers, head_dim {cfg.head_dim}), K={K} "
-        f"members, init {time.perf_counter() - t0:.2f} s, "
-        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
-    trace = synthetic_trace(16, vocab_size=cfg.vocab_size, prompt_lens=(64, 128), max_new=32, seed=0)
-    kw = dict(num_slots=8, max_seq=128 + 32, record_logprobs=True, device="cuda")
+    draw_peak = torch.cuda.max_memory_allocated()
+    log(f"[{tag}] {arch} full width ({depth}, head_dim {cfg.head_dim}, {cfg.param_dtype}), "
+        f"K={K} members, init {time.perf_counter() - t0:.2f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, peak while drawing "
+        f"{draw_peak / 2**30:.2f} GiB [{card}]")
+    trace = synthetic_trace(requests, vocab_size=cfg.vocab_size, prompt_lens=(64, 128),
+                            max_new=max_new, seed=0)
+    kw = dict(num_slots=8, max_seq=128 + max_new, record_logprobs=True, device="cuda")
 
     def serve(paged, sampling, label):
         eng = ServeEngine(cfg, model, members, paged=paged, sampling=sampling, **kw)
@@ -662,8 +719,7 @@ def serve_slice(torch, card, arch, *, paged, kernels, tag, seed0=0):
         return rep, pct
 
     mode = "paged" if paged else "dense"
-    # warm-up on a short trace: cuBLAS handles, allocator pools
-    ServeEngine(cfg, model, members, paged=paged, **kw).run(trace[:2])
+    ServeEngine(cfg, model, members, paged=paged, **kw).run(warmup_trace(cfg.vocab_size))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
@@ -674,13 +730,18 @@ def serve_slice(torch, card, arch, *, paged, kernels, tag, seed0=0):
         f"{peak / 2**30:.2f} GiB [{card}]")
     if min(counts[n] for n in kernels) <= 0:
         raise AssertionError(f"a kernel was not launched on the main path: {counts}")
-    reset_launches()
-    sampled, _ = serve(paged, SamplingParams(temperature=0.7, top_k=50), f"{mode} T=0.7 top_k=50")
-    log(f"[{tag}] launches on the sampled run: {dict(launches)}")
-    if min(launches[n] for n in kernels) <= 0:
-        raise AssertionError(f"a kernel was not launched on the sampled run: {dict(launches)}")
+    sampled_rep = sampled_counts = None
+    if sampled:
+        reset_launches()
+        sampled_rep, _ = serve(paged, SamplingParams(temperature=0.7, top_k=50),
+                               f"{mode} T=0.7 top_k=50")
+        sampled_counts = dict(launches)
+        log(f"[{tag}] launches on the sampled run: {sampled_counts}")
+        if min(sampled_counts[n] for n in kernels) <= 0:
+            raise AssertionError(f"a kernel was not launched on the sampled run: {sampled_counts}")
     return dict(cfg=cfg, model=model, K=K, members=members, kw=kw, trace=trace, serve=serve,
-                greedy=greedy, sampled=sampled, counts=counts, peak=peak, pct=pct)
+                greedy=greedy, sampled=sampled_rep, counts=counts, sampled_counts=sampled_counts,
+                peak=peak, draw_peak=draw_peak, pct=pct)
 
 
 def phase_slice(torch, card):
@@ -749,6 +810,138 @@ def phase_slice_hybrid(torch, card):
     torch.cuda.empty_cache()
     phase_smoke_engine(torch, arch, paged=False, kernels=HYBRID_KERNELS, label="slice-hybrid")
     return counts, hybrid
+
+
+# ---------------------------------------------------------------------------
+# the rest of the text families: the dense configs and the MoE family
+# ---------------------------------------------------------------------------
+
+# (arch, depth or None for the published depth, seed0): h2o-danube at full
+# width and depth; gemma2 and gemma3 at their published widths, cut to 8
+# layers (gemma2: 4 local/global periods; gemma3: one 6-layer period plus the
+# 2 local remainder layers its 62 leave), since a 27b member is 54 GB of bf16
+DENSE_SLICES = (("h2o-danube-1.8b", None, 500), ("gemma2-27b", 8, 520), ("gemma3-27b", 8, 540))
+# (arch, depth, seed0, sampled): olmoe at full width and depth; grok at its
+# published width cut to 2 layers (8 experts of 6144 x 32768: ~21 GB)
+MOE_SLICES = (("olmoe-1b-7b", None, 600, True), ("grok-1-314b", 2, 620, False))
+FAMILY_TRACE = dict(requests=8, max_new=16)  # prompts of 64 and 128 tokens
+WINDOW_PROMPT = 1536  # past gemma3's local window of 1024: the prefill keeps 1024 and rolls
+WINDOW_NEW = 9  # the first token, then 8 more
+
+
+def family_launches(sl, rep, counts, tag, paged):
+    """Exact launch counts of a greedy run: flash once per request per
+    member per layer (every layer is attention), bma_select once per
+    decode tick, paged decode once per tick per layer per member on the
+    paged engine (none on the dense one)."""
+    cfg, K = sl["cfg"], sl["K"]
+    want = {"flash_attention": len(sl["trace"]) * K * cfg.num_layers,
+            "bma_select": rep.decode_steps,
+            "paged_attention": rep.decode_steps * cfg.num_layers * K if paged else 0}
+    got = {n: counts[n] for n in want}
+    log(f"[{tag}] {cfg.name}: launches {got}, expected {want}")
+    if got != want:
+        raise AssertionError(f"[{tag}] {cfg.name} launched {counts}, expected {want}")
+    return got
+
+
+def family_record(sl):
+    """The result.json entry of a text-family slice (serve_slice logged it)."""
+    g = sl["greedy"]
+    rec = dict(arch=sl["cfg"].name, layers=sl["cfg"].num_layers, K=sl["K"],
+               tokens_per_s=g.tokens_per_s, decode_steps=g.decode_steps, wall=g.wall_s,
+               peak=sl["peak"], draw_peak=sl["draw_peak"], launches=sl["counts"], **sl["pct"])
+    if sl["sampled"] is not None:
+        rec["sampled_tokens_per_s"] = sl["sampled"].tokens_per_s
+    return rec
+
+
+def window_check(torch, card, sl):
+    """gemma3's local window at its published 1024: one request with a
+    WINDOW_PROMPT-token prompt, in f32, through the flash kernel engine and
+    through one without the kernel; the first token's mixture logp within
+    SLICE_FIRST_LOGP_ATOL and all WINDOW_NEW tokens identical."""
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    cfg = sl["cfg"].replace(compute_dtype=torch.float32)
+    window = min(k.window for k in cfg.layer_kinds if k.window)
+    prompt = np.random.default_rng(9).integers(0, cfg.vocab_size, WINDOW_PROMPT).astype(np.int32)
+    reps, counts = {}, {}
+    for flash in (True, False):
+        eng = ServeEngine(cfg.replace(use_flash_kernel=flash), sl["model"], sl["members"],
+                          num_slots=1, max_seq=WINDOW_PROMPT + WINDOW_NEW, record_logprobs=True,
+                          device="cuda")
+        reset_launches()
+        reps[flash] = eng.run([Request(rid=0, prompt=prompt, max_new=WINDOW_NEW)])
+        counts[flash] = dict(launches)
+        del eng
+    a, b = reps[True].results[0], reps[False].results[0]
+    first = float(np.abs(a.logprobs[0] - b.logprobs[0]).max())
+    same = bool(a.tokens.size == b.tokens.size == WINDOW_NEW and (a.tokens == b.tokens).all())
+    n_flash = sl["K"] * cfg.num_layers
+    log(f"[slice-dense] window check: gemma3 f32, a {WINDOW_PROMPT}-token prompt over the local "
+        f"window {window}: kernel vs plain first-token logp max diff {first:.3e} (atol "
+        f"{SLICE_FIRST_LOGP_ATOL}); {WINDOW_NEW} tokens identical={same}; flash launches "
+        f"{counts[True]['flash_attention']} (expected {n_flash}) and "
+        f"{counts[False]['flash_attention']} [{card}]")
+    if not (first <= SLICE_FIRST_LOGP_ATOL and same):
+        raise AssertionError(f"gemma3 window check failed: first-token logp diff {first}, "
+                             f"tokens {a.tokens.tolist()} vs {b.tokens.tolist()}")
+    if counts[True]["flash_attention"] != n_flash or counts[False]["flash_attention"] != 0:
+        raise AssertionError(f"window check launches {counts}")
+    return dict(first_logp_diff=first, tokens_equal=same)
+
+
+def phase_slice_dense(torch, card):
+    """h2o-danube-1.8b, gemma2-27b and gemma3-27b (DENSE_SLICES) on the
+    dense engine: a greedy run each with exact launch counts, paged
+    refused (every one has windowed layers), gemma3's window check at its
+    published window, then each SMOKE engine on the card against the CPU."""
+    from repro_torch.serve.engine import ServeEngine
+
+    kernels = ("flash_attention", "bma_select")
+    out, by_path = {}, {}
+    for arch, layers, seed0 in DENSE_SLICES:
+        sl = serve_slice(torch, card, arch, paged=False, kernels=kernels, tag="slice-dense",
+                         seed0=seed0, layers=layers, sampled=False, **FAMILY_TRACE)
+        by_path[arch] = family_launches(sl, sl["greedy"], sl["counts"], "slice-dense", paged=False)
+        out[arch] = family_record(sl)
+        try:
+            ServeEngine(sl["cfg"], sl["model"], sl["members"], paged=True, **sl["kw"])
+        except ValueError as e:
+            log(f"[slice-dense] {arch}: paged=True refused: ValueError: {e}")
+        else:
+            raise AssertionError(f"the paged engine accepted {arch}'s windowed layers")
+        if arch == "gemma3-27b":
+            out[arch]["window"] = window_check(torch, card, sl)
+        del sl
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_smoke_engine(torch, arch, paged=False, kernels=kernels, label="slice-dense")
+    return by_path, out
+
+
+def phase_slice_moe(torch, card):
+    """olmoe-1b-7b and grok-1-314b (MOE_SLICES) on the paged engine, with
+    exact launch counts on each run; each SMOKE engine on the card against
+    the CPU; and SMOKE olmoe training on the card against the CPU (the MoE
+    backward)."""
+    out, by_path = {}, {}
+    for arch, layers, seed0, sampled in MOE_SLICES:
+        sl = serve_slice(torch, card, arch, paged=True, kernels=SERVING_KERNELS,
+                         tag="slice-moe", seed0=seed0, layers=layers, sampled=sampled,
+                         **FAMILY_TRACE)
+        by_path[arch] = family_launches(sl, sl["greedy"], sl["counts"], "slice-moe", paged=True)
+        if sampled:
+            family_launches(sl, sl["sampled"], sl["sampled_counts"], "slice-moe", paged=True)
+        out[arch] = family_record(sl)
+        del sl
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_smoke_engine(torch, arch, paged=True, label="slice-moe")
+    phase_smoke_train(torch, arch="olmoe-1b-7b", label="slice-moe")
+    return by_path, out
 
 
 KERNEL_CLASSES = (  # (label, substrings of a device kernel's name), first match wins
@@ -1260,9 +1453,11 @@ def phase_stationary_precond(torch):
         raise AssertionError(f"on-card preconditioned stationary {bad} miss the oracle")
 
 
-def phase_smoke_train(torch):
+def phase_smoke_train(torch, arch="qwen3-0.6b", label="smoke-train"):
     """SMOKE training, card against CPU: the same params, batches, bits and
-    center noise through train.loop.run with the fused sampler, 3 steps."""
+    center noise through train.loop.run with the fused sampler, 3 steps
+    (``[slice-moe]`` runs it on olmoe-1b-7b: the MoE backward, through the
+    top-k, the one-hots and the capacity cumsum, on the card)."""
     from repro_torch import configs
     from repro_torch.data import chain_batches, synthetic_token_stream
     from repro_torch.kernels import launches, reset_launches
@@ -1270,7 +1465,7 @@ def phase_smoke_train(torch):
     from repro_torch.models import get_model, tree_leaves, tree_map
     from repro_torch.train import LoopConfig, loop, make_train_step
 
-    cfg = configs.get_config("qwen3-0.6b", smoke=True)
+    cfg = configs.get_config(arch, smoke=True)
     model = get_model(cfg)
     K, steps = 4, 3
     members = stacked_members(torch, cfg, model, K, "cpu", seed0=200)
@@ -1288,7 +1483,7 @@ def phase_smoke_train(torch):
     torch.use_deterministic_algorithms(True)  # a nondeterministic op raises and names itself
     for dev in ("cpu", "cuda"):
         to = lambda t: tree_map(lambda x: x.to(dev, copy=True), t)  # the run updates in place
-        samp = default_sampler(cfg, "qwen3-0.6b", K, sync_every=2, fused=True, step_size=1e-3)
+        samp = default_sampler(cfg, arch, K, sync_every=2, fused=True, step_size=1e-3)
         params = to(members)
         noise_fn = lambda step: {"p": tree_map(lambda b: tuple(x.to(dev) for x in b), noise[step][0]),
                                  "r": to(noise[step][1])}
@@ -1307,11 +1502,11 @@ def phase_smoke_train(torch):
         diffs[name] = max((a.cpu() - b).abs().max().item()
                           for a, b in zip(tree_leaves(get(out["cuda"])), tree_leaves(get(out["cpu"]))))
     nll = [(a["nll_per_token"], b["nll_per_token"]) for a, b in zip(out["cuda"][2], out["cpu"][2])]
-    log(f"[smoke-train] SMOKE f32 K={K}, {steps} steps, fused, parity noise: card vs CPU max diff "
+    log(f"[{label}] {arch} SMOKE f32 K={K}, {steps} steps, fused, parity noise: card vs CPU max diff "
         f"params {diffs['params']:.3e}, momentum {diffs['momentum']:.3e}, center "
         f"{diffs['center']:.3e} (atol {SMOKE_TRAIN_ATOL}); nll per step card/CPU {nll}")
     if max(diffs.values()) > SMOKE_TRAIN_ATOL:
-        raise AssertionError("SMOKE training on the card disagrees with the CPU")
+        raise AssertionError(f"[{label}] SMOKE training on the card disagrees with the CPU")
 
 
 TRAIN_CLASSES = (  # (label, substrings of a device kernel's name), first match wins
@@ -1453,10 +1648,10 @@ PAPER_LR, PAPER_BETA = 3e-7, 0.9  # benchmarks/posterior_driver.py's sgd_map(lr,
 PAPER_PRIOR = 1e-5  # Gaussian prior lambda (the paper's MNIST value)
 PAPER_BURNIN = 0.25  # share of the steps before the BMA starts accumulating
 MLP_TRAIN, MLP_TEST, MLP_BATCH = 60_000, 2_000, 100
-MLP_STEPS, MLP_EVAL = 1000, 20  # the paper runs 2000 steps: cut for the call's time
+MLP_STEPS, MLP_EVAL = 500, 20  # the paper runs 2000 steps: cut for the call's time
 RESNET_WIDTH = 16
 RESNET_TRAIN, RESNET_TEST, RESNET_BATCH = 50_000, 1_000, 50
-RESNET_STEPS, RESNET_EVAL = 400, 80  # the paper runs 2000 steps: cut for the call's time
+RESNET_STEPS, RESNET_EVAL = 240, 80  # the paper runs 2000 steps: cut for the call's time
 FIG1_STEPS, FIG1_SG_SEEDS, FIG1_EC_SEEDS = 600, tuple(range(8)), (100, 101)
 SMOKE_PAPER_STEPS, SMOKE_PAPER_N, SMOKE_PAPER_BATCH = 12, 2000, 16
 
@@ -2130,7 +2325,7 @@ def refresh_setup(torch, card):
         return reg, ref, row
 
     ServeEngine(cfg, model, SnapshotRegistry(tree_map(lambda a: a.to("cuda"), host_members)),
-                **kw).run(trace[:2])  # warm-up: allocator pools
+                **kw).run(warmup_trace(QWEN_V))
     return dict(cfg=cfg, serve=serve, n_leaves=len(tree_leaves(host_members)),
                 bootstrap_s=boot_s, bootstrap_peak=boot_peak)
 
@@ -2919,6 +3114,16 @@ def main() -> int:
     paged = timed("paged", phase_paged, torch, ops, ref)
     bma = timed("bma", phase_bma, torch, ops, ref)
     bma256k = timed("bma256k", phase_bma, torch, ops, ref, V=256000, label="bma256k", seed=18)
+    flash_family = timed("flash-family", lambda: [
+        r for i, (Hq, Hkv, d, cases) in enumerate(FLASH_FAMILY_CASES)
+        for r in phase_flash(torch, ops, ref, F, Hq=Hq, Hkv=Hkv, d=d, cases=cases, seed=19 + i)])
+    paged_moe = timed("paged-moe", lambda: [
+        r for i, (Hkv, G, softcap, cases) in enumerate(PAGED_MOE_CASES)
+        for r in phase_paged(torch, ops, ref, Hkv=Hkv, G=G, softcap=softcap, cases=cases,
+                             seed=22 + i)])
+    bma_family = timed("bma-family", lambda: [
+        r for i, V in enumerate(BMA_FAMILY_VOCABS)
+        for r in phase_bma(torch, ops, ref, V=V, seed=24 + i, cases=BMA_ROWS[:1])])
     rglru = timed("rglru", phase_rglru, torch, ops, ref)
     fused = timed("fused_ec", phase_fused_ec, torch, ops, ref, qwen)
     fused["paper"] = timed("fused_ec-paper", phase_fused_ec_small, torch, ops, ref)
@@ -2941,6 +3146,8 @@ def main() -> int:
     counts["fused_precond_ec_update"] = adaptive_counts["fused_precond_ec_update"]
     hybrid_counts, hybrid = timed("slice-hybrid", phase_slice_hybrid, torch, card)
     counts["rglru_scan"] = hybrid_counts["rglru_scan"]
+    dense_counts, slice_dense = timed("slice-dense", phase_slice_dense, torch, card)
+    moe_counts, slice_moe = timed("slice-moe", phase_slice_moe, torch, card)
     serve_launch = timed("serve-launch", phase_serve_launch, torch, card)
     setup = timed("refresh-setup", refresh_setup, torch, card)
     refresh = timed("refresh", phase_refresh, torch, card, setup)
@@ -2978,6 +3185,13 @@ def main() -> int:
          "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
         for n, src, rep, r in entries
     ]
+    # the serving kernels' launches on each path's greedy run, each counted from 0
+    for i, name in enumerate(SERVING_KERNELS):
+        kernels[i]["launches_by_path"] = {
+            "slice": counts[name],
+            **({"slice-hybrid": hybrid_counts[name]} if name in hybrid_counts else {}),
+            **{f"slice-dense/{a}": c[name] for a, c in dense_counts.items() if name in c},
+            **{f"slice-moe/{a}": c[name] for a, c in moe_counts.items()}}
     # the fused kernel's launches on each of its paths, each counted from 0
     kernels[3]["launches_by_path"] = {
         "train": train_counts["fused_ec_update"],
@@ -2990,6 +3204,11 @@ def main() -> int:
                                                   "flash": flash, "flash256": flash256,
                                                   "paged": paged, "ptxas": ptxas,
                                                   "bma": bma, "bma256k": bma256k,
+                                                  "flash_family": flash_family,
+                                                  "paged_moe": paged_moe,
+                                                  "bma_family": bma_family,
+                                                  "slice_dense": slice_dense,
+                                                  "slice_moe": slice_moe,
                                                   "rglru": rglru,
                                                   "fused_ec": fused, "fused_precond": precond,
                                                   "hybrid": hybrid, "train": train,

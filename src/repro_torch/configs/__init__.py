@@ -1,6 +1,8 @@
 """Architecture registry of the port: ``get_config(arch)`` -> ModelConfig
-(+ SMOKE variant).  Only the architectures the port serves are present;
-the others raise ``NotImplementedError``."""
+(+ SMOKE variant).  The port serves the dense (qwen3-0.6b,
+h2o-danube-1.8b, gemma2-27b, gemma3-27b), MoE (olmoe-1b-7b, grok-1-314b)
+and hybrid (recurrentgemma-2b) text decoders; the other architectures
+(xLSTM, the vlm and audio families) raise ``NotImplementedError``."""
 from __future__ import annotations
 
 import importlib
@@ -18,10 +20,26 @@ ARCH_IDS = (
     "qwen2-vl-7b",
 )
 
-PORTED = ("qwen3-0.6b", "recurrentgemma-2b")
+PORTED = (
+    "gemma3-27b",
+    "gemma2-27b",
+    "h2o-danube-1.8b",
+    "qwen3-0.6b",
+    "grok-1-314b",
+    "olmoe-1b-7b",
+    "recurrentgemma-2b",
+)
 
-# EC-SGHMC chain count per arch (the serving ensemble's K)
-EC_CHAINS = {"qwen3-0.6b": 4, "recurrentgemma-2b": 4}
+# EC-SGHMC chain count per arch (the serving ensemble's K), the reference's
+EC_CHAINS = {
+    "gemma3-27b": 2,
+    "gemma2-27b": 2,
+    "h2o-danube-1.8b": 4,
+    "qwen3-0.6b": 4,
+    "grok-1-314b": 1,
+    "olmoe-1b-7b": 4,
+    "recurrentgemma-2b": 4,
+}
 
 
 def get_config(arch: str, smoke: bool = False):

@@ -1,7 +1,7 @@
 """Model registry: family -> ModelDef (the uniform model interface).  The
-dense and hybrid (recurrentgemma) families are ported; the paged surface's
-``check_support`` refuses the hybrid family's RG-LRU layers, as the
-reference's does."""
+dense, MoE and hybrid (recurrentgemma) families are ported; the paged
+surface's ``check_support`` refuses the hybrid family's RG-LRU layers and
+windowed attention, as the reference's does."""
 from __future__ import annotations
 
 from typing import Callable, NamedTuple
@@ -44,7 +44,7 @@ _LM = ModelDef(
 
 
 def get_model(cfg: ModelConfig) -> ModelDef:
-    if cfg.family not in ("dense", "hybrid"):
+    if cfg.family not in ("dense", "moe", "hybrid"):
         raise NotImplementedError(
-            f"model family {cfg.family!r} is not ported; only 'dense' and 'hybrid'")
+            f"model family {cfg.family!r} is not ported; only 'dense', 'moe' and 'hybrid'")
     return _LM

@@ -1,12 +1,14 @@
-"""Decoder-only LM: the dense family (attention blocks) and the hybrid
-family (RG-LRU blocks between local-attention blocks, recurrentgemma).
+"""Decoder-only LM: the dense family (attention blocks), the MoE family
+(attention blocks whose FFN is a mixture of experts, olmoe and grok) and
+the hybrid family (RG-LRU blocks between local-attention blocks,
+recurrentgemma).
 
 Layers follow a repeating block *pattern*: params for pattern position i
 are stacked with a leading (num_periods,) axis, exactly as in the
 reference package, so weights cross one to one; the forward passes loop
 over periods where the reference scans.  Remainder layers (depth %
-period) are applied after the loop.  MoE blocks and the xLSTM kinds
-(mlstm, slstm) are not ported and raise.
+period) are applied after the loop.  The xLSTM kinds (mlstm, slstm) are
+not ported and raise.
 
 Entry points per model:
   train_nll(cfg, params, batch)            -> (sum_nll, token_count)
@@ -23,16 +25,17 @@ import dataclasses
 import torch
 
 from . import layers as L
+from . import moe as M
 from . import recurrent as R
 from .common import LayerKind, ModelConfig, ParamSpec, tree_map
 
 
 def _check_kind(kind: LayerKind) -> None:
-    if (kind.kind == "attn" and not kind.moe) or kind.kind == "rglru":
+    if kind.kind in ("attn", "rglru"):
         return
     raise NotImplementedError(
-        f"block kind {kind.kind!r} (moe={kind.moe}) is not ported; only dense attention and "
-        "rglru (the xLSTM and MoE blocks are listed in ROADMAP.md, Queue A)"
+        f"block kind {kind.kind!r} is not ported; only attention (dense or MoE) and rglru "
+        "(the xLSTM blocks are listed in ROADMAP.md, Queue A)"
     )
 
 
@@ -52,7 +55,7 @@ def _block_specs(cfg: ModelConfig, kind: LayerKind) -> dict:
         return {"ln1": L.norm_spec(cfg), "mix": R.rglru_specs(cfg), "ln2": L.norm_spec(cfg),
                 "mlp": L.mlp_specs(cfg)}
     sp = {"ln1": L.norm_spec(cfg), "attn": L.attn_specs(cfg), "ln2": L.norm_spec(cfg),
-          "mlp": L.mlp_specs(cfg)}
+          "mlp": M.moe_specs(cfg) if kind.moe else L.mlp_specs(cfg)}
     if cfg.sandwich_norm:
         sp["post_ln1"] = L.norm_spec(cfg)
         sp["post_ln2"] = L.norm_spec(cfg)
@@ -103,11 +106,14 @@ def _norm(cfg, x, w):
     return L.rms_norm(x, w, cfg.norm_eps, cfg.norm_scale_offset)
 
 
-def _ffn_tail(cfg, p, x, h):
+def _ffn_tail(cfg, kind, p, x, h):
+    """The attention block after its mixer: residual, then the dense or
+    MoE FFN (the one place either runs for every entry point)."""
     if cfg.sandwich_norm:
         h = _norm(cfg, h, p["post_ln1"])
     x = x + h
-    h = L.mlp(cfg, p["mlp"], _norm(cfg, x, p["ln2"]))
+    h_in = _norm(cfg, x, p["ln2"])
+    h = M.moe_ffn(cfg, p["mlp"], h_in) if kind.moe else L.mlp(cfg, p["mlp"], h_in)
     if cfg.sandwich_norm:
         h = _norm(cfg, h, p["post_ln2"])
     return x + h
@@ -129,7 +135,7 @@ def apply_block(cfg: ModelConfig, kind: LayerKind, p, x, positions):
     if kind.kind == "rglru":
         return _rglru_layer(cfg, p, x)[0]
     h = L.attention(cfg, p["attn"], _norm(cfg, x, p["ln1"]), positions, kind.window)
-    return _ffn_tail(cfg, p, x, h)
+    return _ffn_tail(cfg, kind, p, x, h)
 
 
 def decode_block(cfg: ModelConfig, kind: LayerKind, p, x, cache, t):
@@ -138,7 +144,7 @@ def decode_block(cfg: ModelConfig, kind: LayerKind, p, x, cache, t):
         h, _ = R.rglru_decode(cfg, p["mix"], _norm(cfg, x, p["ln1"]), cache["mix"])
         return _rglru_tail(cfg, p, x, h)
     h, _ = L.decode_attention(cfg, p["attn"], _norm(cfg, x, p["ln1"]), cache["attn"], t, kind.window)
-    return _ffn_tail(cfg, p, x, h)
+    return _ffn_tail(cfg, kind, p, x, h)
 
 
 def make_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype, device="cuda"):
@@ -350,6 +356,6 @@ def paged_decode_step(cfg: ModelConfig, params, pools, tokens, block_tables,
             cfg, p["attn"], _norm(cfg, x, p["ln1"]), pool["attn"],
             block_tables, context_lens, write_block,
         )
-        x = _ffn_tail(cfg, p, x, h)
+        x = _ffn_tail(cfg, kind, p, x, h)
     x = _norm(cfg, x, params["final_norm"])
     return L.final_logits(cfg, params["embed"], x), pools

@@ -141,12 +141,13 @@ def test_bootstrap_leaves_no_reference_cycles(smoke):
     assert leaked == []
 
 
-def test_serve_main_ensemble_and_single():
-    toks = serve_launch.main(["--arch", "qwen3-0.6b", "--smoke", "--device", "cpu",
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "olmoe-1b-7b", "gemma2-27b"])
+def test_serve_main_ensemble_and_single(arch):
+    toks = serve_launch.main(["--arch", arch, "--smoke", "--device", "cpu",
                               "--ensemble", "3", "--batch", "2", "--prompt-len", "8",
                               "--gen", "5"])
     assert toks.shape == (2, 5) and int(toks.min()) >= 0 and int(toks.max()) < 512
-    single = serve_launch.main(["--arch", "qwen3-0.6b", "--smoke", "--device", "cpu",
+    single = serve_launch.main(["--arch", arch, "--smoke", "--device", "cpu",
                                 "--batch", "2", "--prompt-len", "8", "--gen", "5"])
     assert single.shape == (2, 5)
 

@@ -157,10 +157,12 @@ def test_init_params_seeded_on_requested_device(shared):
 
 
 def test_unported_families_and_arches_raise():
-    with pytest.raises(NotImplementedError):
-        configs.get_config("gemma3-27b")
+    for arch in ("xlstm-350m", "whisper-base"):
+        with pytest.raises(NotImplementedError):
+            configs.get_config(arch)
     with pytest.raises(KeyError):
         configs.get_config("no-such-arch")
-    moe = _interop.config_from(jconfigs.get_config("olmoe-1b-7b", smoke=True))
+    audio = _interop.config_from(jconfigs.get_config("whisper-base", smoke=True))
+    assert audio.family == "audio"
     with pytest.raises(NotImplementedError):
-        get_model(moe)
+        get_model(audio)

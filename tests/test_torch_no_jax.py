@@ -27,7 +27,10 @@ def test_importing_every_module_loads_no_jax():
             "repro_torch.data.pipeline", "repro_torch.data.synthetic",
             "repro_torch.distributed", "repro_torch.distributed.compression",
             "repro_torch.distributed.collectives", "repro_torch.distributed.sharding",
-            "repro_torch.launch.mesh"} <= set(mods)
+            "repro_torch.launch.mesh", "repro_torch.models.moe",
+            "repro_torch.configs.h2o_danube_1_8b", "repro_torch.configs.gemma2_27b",
+            "repro_torch.configs.gemma3_27b", "repro_torch.configs.olmoe_1b_7b",
+            "repro_torch.configs.grok_1_314b"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
