@@ -13,7 +13,9 @@ Two paths:
   (``--refresh-mode overlapped``, the default) or inline (``sync``).
 
 Runs on the card unless ``--device cpu`` is given; on the card the prefill
-goes through the flash attention kernel.
+goes through the flash attention kernel.  The audio family (whisper) runs
+the first path only, with random frame embeddings for its stubbed
+frontend; the engine, like the reference's, takes token prompts only.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b --smoke \\
       --device cpu --batch 4 --prompt-len 16 --gen 8 --ensemble 2
@@ -137,6 +139,9 @@ def _config(args):
 
 
 def _run_engine(args, cfg, model):
+    if cfg.family == "audio":
+        raise ValueError("the engine takes token prompts only: serve the audio family "
+                         "without --engine")
     specs = model.param_specs(cfg)
     key = rnglib.key(args.seed)
     k = max(args.ensemble, 1)
@@ -240,6 +245,9 @@ def main(argv=None):
     gen = rnglib.generator(key, args.device)
     batch = {"tokens": torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                                      generator=gen, device=args.device, dtype=torch.int32)}
+    if cfg.family == "audio":  # the stubbed frontend's frame embeddings
+        batch["frame_embeds"] = 0.02 * torch.randn((args.batch, cfg.enc_seq, cfg.d_model),
+                                                   generator=gen, device=args.device)
 
     t0 = time.time()
     if args.ensemble > 1:

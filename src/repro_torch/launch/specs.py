@@ -1,10 +1,18 @@
-"""Sampler wiring per architecture.  Only ``default_sampler`` of
-``repro/launch/specs.py`` is ported; the dry-run cells (``Cell``,
-``build_cell``) wait for ``launch/dryrun.py``."""
+"""Sampler wiring per architecture, and the vlm patch-prefix length.  Of
+``repro/launch/specs.py`` only ``default_sampler``, ``VLM_PATCHES`` and
+``vlm_patches`` are ported; the dry-run cells (``Cell``, ``build_cell``)
+wait for ``launch/dryrun.py``."""
 from __future__ import annotations
 
 from repro_torch.core import ec_sghmc, sghmc
 from repro_torch.distributed import int8_codec
+
+VLM_PATCHES = 64
+
+
+def vlm_patches(seq_len: int) -> int:
+    """Patch-prefix length; bounded so tiny smoke shapes keep text tokens."""
+    return min(VLM_PATCHES, seq_len // 2)
 
 
 def default_sampler(cfg, arch: str, num_chains: int, sync_every: int = 4, fused: bool = False,

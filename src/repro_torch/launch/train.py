@@ -2,8 +2,9 @@
 arch (``train.loop`` over ``run.ChainExecutor``), with checkpoints,
 auto-resume and a simulated preemption.
 
-Runs on the card unless ``--device cpu`` is given.  The audio and vlm
-families raise ``NotImplementedError``: their models are not ported.
+Runs on the card unless ``--device cpu`` is given.  The audio family's
+batches carry frame embeddings, the vlm family's patch embeddings in
+front of shorter text, both from seeded generators.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b --smoke \\
       --device cpu --steps 100 --chains 4 --sync-every 4 --ckpt-dir /tmp/ck
@@ -12,11 +13,14 @@ from __future__ import annotations
 
 import argparse
 
+import torch
+
 from repro_torch import configs
 from repro_torch import obs
 from repro_torch.core import ec_sghmc, rng as rnglib, sghmc, tree_broadcast_axis0
 from repro_torch.data import synthetic_token_stream
 from repro_torch.data.pipeline import chain_batches
+from repro_torch.launch.specs import vlm_patches
 from repro_torch.models import get_model, init_params
 from repro_torch.models.common import tree_map
 from repro_torch.train.loop import LoopConfig, run
@@ -25,14 +29,35 @@ from repro_torch.train.step import make_train_step
 log = obs.get_logger("train")
 
 
+def _embeds(seed: int, step: int, shape, dtype, device):
+    """0.02 * N(0, 1) of ``shape`` in ``dtype``, from a generator seeded by
+    (seed, step): the stubbed frontend's frame or patch embeddings."""
+    gen = rnglib.generator(rnglib.fold_in(rnglib.key(seed), step), device)
+    return (0.02 * torch.randn(shape, generator=gen, device=device)).to(dtype)
+
+
 def build_batch_fn(cfg, num_chains: int, per_chain: int, seq_len: int, seed: int = 0,
                    device="cuda"):
-    if cfg.family in ("audio", "vlm"):
-        raise NotImplementedError(f"the {cfg.family} family's models are not ported yet")
+    """step -> the chains' batch: tokens and labels (K, B, seq_len), plus
+    frame_embeds (K, B, enc_seq, D) for the audio family, or patch_embeds
+    (K, B, P, D) before text cut to seq_len - P for the vlm family (P =
+    ``vlm_patches(seq_len)``), as the reference builds them."""
     sampler = synthetic_token_stream(cfg.vocab_size, seed, device=device)
+    lead = (num_chains, per_chain)
 
     def fn(step: int):
-        return chain_batches(sampler, step, num_chains, per_chain, seq_len)
+        batch = chain_batches(sampler, step, num_chains, per_chain, seq_len)
+        if cfg.family == "audio":
+            batch["frame_embeds"] = _embeds(seed + 7, step, lead + (cfg.enc_seq, cfg.d_model),
+                                            cfg.compute_dtype, device)
+        if cfg.family == "vlm":
+            n_patch = vlm_patches(seq_len)
+            n_text = seq_len - n_patch
+            batch["tokens"] = batch["tokens"][..., :n_text]
+            batch["labels"] = batch["labels"][..., :n_text]
+            batch["patch_embeds"] = _embeds(seed + 8, step, lead + (n_patch, cfg.d_model),
+                                            cfg.compute_dtype, device)
+        return batch
 
     return fn
 

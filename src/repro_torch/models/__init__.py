@@ -1,4 +1,4 @@
-from . import mlp, resnet
+from . import encdec, mlp, resnet
 from .common import LayerKind, ModelConfig, ParamSpec, init_params, num_params, tree_leaves, tree_map
 from .registry import ModelDef, PagedDef, get_model
 
@@ -8,6 +8,7 @@ __all__ = [
     "ModelDef",
     "PagedDef",
     "ParamSpec",
+    "encdec",
     "get_model",
     "init_params",
     "mlp",

@@ -1,4 +1,4 @@
-"""Shared neural-net layers: norms, RoPE, GQA attention (full /
+"""Shared neural-net layers: norms, RoPE/M-RoPE, GQA attention (full /
 sliding-window / softcap / qk-norm) with KV-cache decode and paged decode,
 gated MLPs and embeddings.
 
@@ -48,12 +48,21 @@ def rope_freqs(head_dim: int, theta: float, device=None):
 
 
 def apply_rope(x, positions, theta: float, mrope_sections=None):
-    """x: (B, S, H, dh). positions: (B, S) int."""
-    if mrope_sections is not None:
-        raise NotImplementedError("M-RoPE (qwen2-vl) is not ported")
+    """x: (B, S, H, dh). positions: (B, S) int, or (3, B, S) for M-RoPE,
+    where each section of the frequencies is driven by its own position
+    stream (temporal, height, width)."""
     dh = x.shape[-1]
     freqs = rope_freqs(dh, theta, x.device)  # (dh/2,)
-    angles = positions[..., None].float() * freqs  # (B, S, dh/2)
+    if mrope_sections is None:
+        angles = positions[..., None].float() * freqs  # (B, S, dh/2)
+    else:
+        if positions.ndim != 3:
+            raise ValueError("M-RoPE needs positions (3, B, S)")
+        parts, start = [], 0
+        for i, sec in enumerate(mrope_sections):
+            parts.append(positions[i][..., None].float() * freqs[start:start + sec])
+            start += sec
+        angles = torch.cat(parts, dim=-1)  # (B, S, dh/2)
     cos = torch.cos(angles)[..., None, :]  # (B, S, 1, dh/2)
     sin = torch.sin(angles)[..., None, :]
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
@@ -140,7 +149,8 @@ def attention(
     B, S, _ = x.shape
     q, k, v = _qk(cfg, p, x, positions)
     scale = _scale(cfg)
-    # the flash path assumes contiguous arange positions (block masking)
+    # the flash path assumes contiguous arange positions (block masking):
+    # M-RoPE batches stay on the chunked path, as in the reference
     if cfg.use_flash_kernel and causal and cfg.mrope_sections is None and S % min(128, S) == 0:
         from repro_torch.kernels.ops import flash_attention as _flash
 
@@ -153,7 +163,7 @@ def attention(
     q_chunk = min(q_chunk, S)
     while S % q_chunk:  # largest divisor of S
         q_chunk -= 1
-    kpos = positions  # (B, S)
+    kpos = positions if positions.ndim == 2 else positions[0]  # (B, S)
     outs = []
     for c in range(S // q_chunk):
         qs = q[:, c * q_chunk:(c + 1) * q_chunk]
@@ -195,7 +205,10 @@ def decode_attention(cfg: ModelConfig, p, x, cache, t, window: Optional[int]):
     B = x.shape[0]
     t = torch.as_tensor(t, device=x.device).long()
     tb = t.expand(B) if t.ndim == 0 else t  # (B,)
-    q, k, v = _qk(cfg, p, x, tb[:, None])
+    pos = tb[:, None]
+    if cfg.mrope_sections is not None:  # every stream at t, as the reference broadcasts
+        pos = pos[None].expand(3, B, 1)
+    q, k, v = _qk(cfg, p, x, pos)
     L = cache["k"].shape[1]
     slot = tb % L if window else tb.clamp(max=L - 1)
     rows = torch.arange(B, device=x.device)

@@ -1,12 +1,13 @@
 """Model registry: family -> ModelDef (the uniform model interface).  The
-dense, MoE and hybrid (recurrentgemma) families are ported; the paged
-surface's ``check_support`` refuses the hybrid family's RG-LRU layers and
-windowed attention, as the reference's does."""
+audio family is the encoder-decoder (``encdec``, dense decode only); every
+other family is the decoder-only LM (``transformer``), whose paged
+surface's ``check_support`` refuses recurrent layers (RG-LRU, mLSTM,
+sLSTM), windowed attention and M-RoPE, as the reference's does."""
 from __future__ import annotations
 
 from typing import Callable, NamedTuple
 
-from . import transformer
+from . import encdec, transformer
 from .common import ModelConfig
 
 
@@ -43,8 +44,14 @@ _LM = ModelDef(
 )
 
 
+_ENCDEC = ModelDef(
+    param_specs=encdec.param_specs,
+    train_nll=encdec.train_nll,
+    prefill=encdec.prefill,
+    decode_step=encdec.decode_step,
+    make_cache=encdec.make_cache,
+)
+
+
 def get_model(cfg: ModelConfig) -> ModelDef:
-    if cfg.family not in ("dense", "moe", "hybrid"):
-        raise NotImplementedError(
-            f"model family {cfg.family!r} is not ported; only 'dense', 'moe' and 'hybrid'")
-    return _LM
+    return _ENCDEC if cfg.family == "audio" else _LM

@@ -1,14 +1,15 @@
 """Decoder-only LM: the dense family (attention blocks), the MoE family
-(attention blocks whose FFN is a mixture of experts, olmoe and grok) and
-the hybrid family (RG-LRU blocks between local-attention blocks,
-recurrentgemma).
+(attention blocks whose FFN is a mixture of experts, olmoe and grok), the
+hybrid family (RG-LRU blocks between local-attention blocks,
+recurrentgemma), the ssm family (mLSTM and sLSTM blocks, xlstm) and the
+vlm backbone (qwen2-vl: M-RoPE position streams, precomputed patch
+embeddings prepended to the text).
 
 Layers follow a repeating block *pattern*: params for pattern position i
 are stacked with a leading (num_periods,) axis, exactly as in the
 reference package, so weights cross one to one; the forward passes loop
 over periods where the reference scans.  Remainder layers (depth %
-period) are applied after the loop.  The xLSTM kinds (mlstm, slstm) are
-not ported and raise.
+period) are applied after the loop.
 
 Entry points per model:
   train_nll(cfg, params, batch)            -> (sum_nll, token_count)
@@ -30,13 +31,9 @@ from . import recurrent as R
 from .common import LayerKind, ModelConfig, ParamSpec, tree_map
 
 
-def _check_kind(kind: LayerKind) -> None:
-    if kind.kind in ("attn", "rglru"):
-        return
-    raise NotImplementedError(
-        f"block kind {kind.kind!r} is not ported; only attention (dense or MoE) and rglru "
-        "(the xLSTM blocks are listed in ROADMAP.md, Queue A)"
-    )
+_XLSTM = ("mlstm", "slstm")
+_STATE_INIT = {"rglru": R.rglru_init_state, "mlstm": R.mlstm_init_state,
+               "slstm": R.slstm_init_state}
 
 
 # ---------------------------------------------------------------------------
@@ -50,10 +47,14 @@ def stack_specs(specs, n: int):
 
 
 def _block_specs(cfg: ModelConfig, kind: LayerKind) -> dict:
-    _check_kind(kind)
     if kind.kind == "rglru":
         return {"ln1": L.norm_spec(cfg), "mix": R.rglru_specs(cfg), "ln2": L.norm_spec(cfg),
                 "mlp": L.mlp_specs(cfg)}
+    if kind.kind in _XLSTM:  # the block carries its own projections: no FFN
+        mix = R.mlstm_specs(cfg) if kind.kind == "mlstm" else R.slstm_specs(cfg)
+        return {"ln1": L.norm_spec(cfg), "mix": mix}
+    if kind.kind != "attn":
+        raise ValueError(kind.kind)
     sp = {"ln1": L.norm_spec(cfg), "attn": L.attn_specs(cfg), "ln2": L.norm_spec(cfg),
           "mlp": M.moe_specs(cfg) if kind.moe else L.mlp_specs(cfg)}
     if cfg.sandwich_norm:
@@ -131,34 +132,48 @@ def _rglru_layer(cfg, p, x):
 
 
 def apply_block(cfg: ModelConfig, kind: LayerKind, p, x, positions):
-    _check_kind(kind)
+    if kind.kind == "attn":
+        h = L.attention(cfg, p["attn"], _norm(cfg, x, p["ln1"]), positions, kind.window)
+        return _ffn_tail(cfg, kind, p, x, h)
     if kind.kind == "rglru":
         return _rglru_layer(cfg, p, x)[0]
-    h = L.attention(cfg, p["attn"], _norm(cfg, x, p["ln1"]), positions, kind.window)
-    return _ffn_tail(cfg, kind, p, x, h)
+    if kind.kind == "mlstm":
+        return x + R.mlstm_block(cfg, p["mix"], _norm(cfg, x, p["ln1"]))
+    if kind.kind == "slstm":
+        return x + R.slstm_block(cfg, p["mix"], _norm(cfg, x, p["ln1"]))[0]
+    raise ValueError(kind.kind)
 
 
 def decode_block(cfg: ModelConfig, kind: LayerKind, p, x, cache, t):
-    _check_kind(kind)
+    if kind.kind == "attn":
+        h, _ = L.decode_attention(cfg, p["attn"], _norm(cfg, x, p["ln1"]), cache["attn"], t,
+                                  kind.window)
+        return _ffn_tail(cfg, kind, p, x, h)
     if kind.kind == "rglru":
         h, _ = R.rglru_decode(cfg, p["mix"], _norm(cfg, x, p["ln1"]), cache["mix"])
         return _rglru_tail(cfg, p, x, h)
-    h, _ = L.decode_attention(cfg, p["attn"], _norm(cfg, x, p["ln1"]), cache["attn"], t, kind.window)
-    return _ffn_tail(cfg, kind, p, x, h)
+    if kind.kind == "mlstm":
+        return x + R.mlstm_decode(cfg, p["mix"], _norm(cfg, x, p["ln1"]), cache["mix"])[0]
+    if kind.kind == "slstm":
+        return x + R.slstm_decode(cfg, p["mix"], _norm(cfg, x, p["ln1"]), cache["mix"])[0]
+    raise ValueError(kind.kind)
 
 
 def make_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype, device="cuda"):
     """Dense decode cache, plus ``t``, the next position (0-d).  Per
     pattern layer: attention k/v leaves (n_periods, batch, L, Hkv, dh), or
-    the RG-LRU state, h (n_periods, batch, R) f32 and conv (n_periods,
-    batch, W-1, R); remainder layers drop the n_periods axis."""
+    a recurrent state with batch after the n_periods axis: RG-LRU h
+    (.., R) f32 and conv (.., W-1, R); mLSTM C (.., NH, dh, dh), n, m f32
+    and conv (.., 3, up); sLSTM h, c, n, m (.., NH, dh) f32.  Remainder
+    layers drop the n_periods axis."""
     P, n_periods, rem_kinds = _layout(cfg)
 
     def one(kind, lead):
-        _check_kind(kind)
-        if kind.kind == "rglru":
-            return {"mix": R.rglru_init_state(cfg, batch, dtype, device, lead)}
-        return {"attn": L.init_cache(cfg, batch, max_seq, kind.window, dtype, device, lead)}
+        if kind.kind == "attn":
+            return {"attn": L.init_cache(cfg, batch, max_seq, kind.window, dtype, device, lead)}
+        if kind.kind not in _STATE_INIT:
+            raise ValueError(kind.kind)
+        return {"mix": _STATE_INIT[kind.kind](cfg, batch, dtype, device, lead)}
 
     cache = {
         "layers": {str(i): one(cfg.pattern[i], (n_periods,)) for i in range(P)},
@@ -175,11 +190,22 @@ def make_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype, device="cuda")
 
 
 def _positions(cfg: ModelConfig, batch, B, S, device):
+    """``batch["positions"]`` when given ((B, S), or (3, B, S) for
+    M-RoPE), else the arange, broadcast to the 3 streams under M-RoPE."""
     if "positions" in batch:
         return batch["positions"]
+    pos = torch.arange(S, dtype=torch.int32, device=device)[None].expand(B, S)
     if cfg.mrope_sections is not None:
-        raise NotImplementedError("M-RoPE position streams are not ported")
-    return torch.arange(S, dtype=torch.int32, device=device)[None].expand(B, S)
+        pos = pos[None].expand(3, B, S)
+    return pos
+
+
+def _embed_inputs(cfg: ModelConfig, params, batch):
+    """Token embeddings, with precomputed patch embeddings (vlm) prepended."""
+    x = L.embed(cfg, params["embed"], batch["tokens"])
+    if "patch_embeds" in batch:
+        x = torch.cat([batch["patch_embeds"].to(x.dtype), x], dim=1)
+    return x
 
 
 def backbone(cfg: ModelConfig, params, x, positions):
@@ -200,28 +226,38 @@ def backbone(cfg: ModelConfig, params, x, positions):
 
 
 def train_nll(cfg: ModelConfig, params, batch):
-    """batch: tokens (B, S), labels (B, S), optional mask/positions.
-    Returns (sum_nll, token_count)."""
-    if "patch_embeds" in batch:
-        raise NotImplementedError("patch/frame embeddings (vlm, audio) are not ported")
-    tokens = batch["tokens"]
-    B, S = tokens.shape
-    x = L.embed(cfg, params["embed"], tokens)
+    """batch: tokens (B, S), labels (B, S), optional mask/positions, and
+    optional patch_embeds (B, P, D) prepended to the tokens (the labels
+    cover the text only).  Returns (sum_nll, token_count)."""
+    x = _embed_inputs(cfg, params, batch)
+    B, S = x.shape[:2]
     positions = _positions(cfg, batch, B, S, x.device)
     x = backbone(cfg, params, x, positions)
+    n_prefix = S - batch["labels"].shape[1]
+    if n_prefix:
+        x = x[:, n_prefix:]
     return L.chunked_xent(cfg, params["embed"], x, batch["labels"], batch.get("mask"))
 
 
 def _prefill_block(cfg, kind, p, x, cache, positions):
     """apply_block + fill this layer's cache (a view, written in place)
-    from the full-sequence pass.  An RG-LRU layer's state comes out of its
-    one scan."""
-    _check_kind(kind)
+    from the full-sequence pass.  An RG-LRU or sLSTM layer's state comes
+    out of its one scan; an mLSTM layer's from the decode recurrence run
+    over the prompt."""
     if kind.kind == "rglru":
         x, state = _rglru_layer(cfg, p, x)
         for key, val in state.items():
             cache["mix"][key].copy_(val)
         return x
+    if kind.kind == "mlstm":
+        return x + R.mlstm_block(cfg, p["mix"], _norm(cfg, x, p["ln1"]), cache["mix"])
+    if kind.kind == "slstm":
+        out, state = R.slstm_block(cfg, p["mix"], _norm(cfg, x, p["ln1"]))
+        for key, val in state.items():
+            cache["mix"][key].copy_(val)
+        return x + out
+    if kind.kind != "attn":
+        raise ValueError(kind.kind)
     xin = _norm(cfg, x, p["ln1"])
     _, k, v = L._qk(cfg, p["attn"], xin, positions)
     ck, cv = cache["attn"]["k"], cache["attn"]["v"]
@@ -241,12 +277,10 @@ def _prefill_block(cfg, kind, p, x, cache, positions):
 
 
 def prefill(cfg: ModelConfig, params, batch, max_seq: int, cache_dtype=None):
-    """Run the full prompt, building the decode cache; returns
-    (last_token_logits (B,1,V), cache)."""
-    tokens = batch["tokens"]
-    B = tokens.shape[0]
-    x = L.embed(cfg, params["embed"], tokens)
-    S = x.shape[1]
+    """Run the full prompt (patch embeddings first, where given), building
+    the decode cache; returns (last_token_logits (B,1,V), cache)."""
+    x = _embed_inputs(cfg, params, batch)
+    B, S = x.shape[:2]
     positions = _positions(cfg, batch, B, S, x.device)
     cache = make_cache(cfg, B, max_seq, cache_dtype or cfg.compute_dtype, x.device)
     for (kind, p), (_, c) in zip(_blocks(cfg, params), _blocks(cfg, cache)):
@@ -351,7 +385,6 @@ def paged_decode_step(cfg: ModelConfig, params, pools, tokens, block_tables,
     written in place."""
     x = L.embed(cfg, params["embed"], tokens)
     for (kind, p), (_, pool) in zip(_blocks(cfg, params), _blocks(cfg, pools)):
-        _check_kind(kind)
         h, _ = L.paged_decode_attention(
             cfg, p["attn"], _norm(cfg, x, p["ln1"]), pool["attn"],
             block_tables, context_lens, write_block,

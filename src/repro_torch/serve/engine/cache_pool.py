@@ -2,10 +2,10 @@
 
 ``CachePool`` pre-allocates every decode slot's dense cache for every
 ensemble member: the leaves of ``model.make_cache(cfg, batch=num_slots,
-max_seq)`` (attention k/v, RG-LRU state) with a leading member axis, and a
-per-slot position ``t`` of shape (K, num_slots).  It is allocated ONCE at
-engine construction;
-admissions and completions recycle slots by index.  (The reference pools
+max_seq)`` (attention k/v; RG-LRU, mLSTM or sLSTM state) with a leading
+member axis, and a per-slot position ``t`` of shape (K, num_slots).  It is
+allocated ONCE at engine construction; admissions and completions recycle
+slots by index.  (The reference pools
 one batch-1 cache per slot; here the slot axis is the cache's batch axis,
 so a member decodes every slot in one call.)
 
@@ -46,8 +46,9 @@ def _unpack(x):
 
 def _batch_leaves(tree, stacked: bool = False):
     """(parent dict, key, batch axis) for each leaf of a make_cache tree:
-    attention k/v and RG-LRU h/conv alike (batch axis 1 under the stacked
-    "layers", 0 under "rem"); ``t`` is skipped."""
+    attention k/v and the recurrent states alike (RG-LRU h/conv, mLSTM
+    C/n/m/conv, sLSTM h/c/n/m: batch axis 1 under the stacked "layers", 0
+    under "rem"); ``t`` is skipped."""
     for key, sub in tree.items():
         if isinstance(sub, dict):
             yield from _batch_leaves(sub, stacked or key == "layers")
@@ -69,7 +70,9 @@ class CachePool:
     """Pre-allocated dense cache pool with free-list recycling.
 
     ``caches`` leaves are (K, [n_periods,] num_slots, ...): attention k/v
-    (..., L, Hkv, dh), RG-LRU h (..., R) and conv (..., W-1, R); and
+    (..., L, Hkv, dh), RG-LRU h (..., R) and conv (..., W-1, R), mLSTM C
+    (..., NH, dh, dh), n, m and conv (..., 3, up), sLSTM h, c, n, m (...,
+    NH, dh); and
     ``caches["t"]`` is (K, num_slots).  ``member(k)`` is member k's view, a
     ``make_cache``-shaped tree whose ``t`` is (num_slots,); decode steps
     write through it in place."""

@@ -1,6 +1,9 @@
 """Per-architecture smoke tests of the port, beside the reference's
 (``tests/test_arch_smoke.py`` and the model part of
-``tests/test_model_properties.py``), for every ported text decoder.
+``tests/test_model_properties.py``), for all ten architectures; each
+family's batch is built as the reference's test builds it (vlm: 8 patch
+embeddings on a 2 x 4 grid of M-RoPE positions before 24 text tokens;
+audio: frame embeddings for the encoder).
 
 At the SMOKE size, on params carried across from the reference's init and
 the same inputs on both sides: the train forward (finite, near-uniform
@@ -30,8 +33,9 @@ from repro_torch.models import moe as M
 from repro_torch.models.common import tree_unflatten
 
 ARCHS = ("qwen3-0.6b", "h2o-danube-1.8b", "gemma2-27b", "gemma3-27b", "olmoe-1b-7b",
-         "grok-1-314b", "recurrentgemma-2b")
+         "grok-1-314b", "recurrentgemma-2b", "xlstm-350m", "qwen2-vl-7b", "whisper-base")
 B, S = 2, 32
+N_PATCH = 8
 
 
 @pytest.fixture(scope="module")
@@ -46,9 +50,29 @@ def arch_setup():
     return get
 
 
-def _batch(cfg, seed):
-    return {"tokens": tp.tokens(seed, (B, S), cfg.vocab_size),
-            "labels": tp.tokens(seed + 100, (B, S), cfg.vocab_size)}
+def _batch(cfg, seed, labels=True):
+    """tokens (and labels) (B, n_text), plus the family's inputs: vlm patch
+    embeddings with (t, h, w) positions, patches at (0, i // 4, i % 4) and
+    text continuing at 1, 2, ... on every stream; audio frame embeddings."""
+    rng = np.random.default_rng(seed + 200)
+    n_text = S
+    batch = {}
+    if cfg.family == "vlm":
+        n_text = S - N_PATCH
+        batch["patch_embeds"] = (0.02 * rng.standard_normal((B, N_PATCH, cfg.d_model))).astype(
+            np.float32)
+        i, text = np.arange(N_PATCH), np.arange(n_text) + 1
+        pos = np.stack([np.concatenate([np.zeros(N_PATCH, np.int64), text]),
+                        np.concatenate([i // 4, text]), np.concatenate([i % 4, text])])
+        batch["positions"] = np.ascontiguousarray(
+            np.broadcast_to(pos[:, None], (3, B, S))).astype(np.int32)
+    if cfg.family == "audio":
+        batch["frame_embeds"] = (0.02 * rng.standard_normal((B, cfg.enc_seq, cfg.d_model))).astype(
+            np.float32)
+    batch["tokens"] = tp.tokens(seed, (B, n_text), cfg.vocab_size)
+    if labels:
+        batch["labels"] = tp.tokens(seed + 100, (B, n_text), cfg.vocab_size)
+    return batch
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -58,7 +82,7 @@ def test_train_forward(arch, arch_setup):
     jn, jc = jax.jit(lambda p, bb: jmodel.train_nll(jcfg, p, bb))(
         jparams, {k: jnp.asarray(v) for k, v in b.items()})
     n, c = get_model(cfg).train_nll(cfg, params, {k: torch.tensor(v) for k, v in b.items()})
-    assert np.isfinite(float(n)) and int(c) == int(jc) == B * S
+    assert np.isfinite(float(n)) and int(c) == int(jc) == B * b["labels"].shape[1]
     per_tok = float(n) / float(c)  # untrained: near uniform, NLL/token near log V
     assert 0.5 * np.log(cfg.vocab_size) < per_tok < 2.0 * np.log(cfg.vocab_size), per_tok
     np.testing.assert_allclose(float(n), float(jn), rtol=1e-6, atol=tp.ATOL)
@@ -89,10 +113,10 @@ def test_train_grads_finite(arch, arch_setup):
 def test_prefill_decode(arch, arch_setup):
     jcfg, jmodel, jparams, cfg, params = arch_setup(arch)
     model = get_model(cfg)
-    toks = _batch(cfg, 3)["tokens"]
+    b = _batch(cfg, 3, labels=False)
     max_seq = S + 8
-    jl, jcache = jmodel.prefill(jcfg, jparams, {"tokens": jnp.asarray(toks)}, max_seq)
-    tl, cache = model.prefill(cfg, params, {"tokens": torch.tensor(toks)}, max_seq)
+    jl, jcache = jmodel.prefill(jcfg, jparams, {k: jnp.asarray(v) for k, v in b.items()}, max_seq)
+    tl, cache = model.prefill(cfg, params, {k: torch.tensor(v) for k, v in b.items()}, max_seq)
     assert tuple(tl.shape) == (B, 1, cfg.vocab_size) and torch.isfinite(tl).all()
     assert int(cache["t"]) == S
     for step in range(3):
@@ -108,7 +132,9 @@ def test_prefill_decode(arch, arch_setup):
 # decode after a prefill of N tokens == the last position of a prefill of
 # N + 1..N + 4 tokens; windowed archs start past the SMOKE window of 8.  The
 # MoE archs run with a capacity no prefill fills: a prefill group drops
-# entries past its capacity where a one-token decode never does
+# entries past its capacity where a one-token decode never does.  The audio
+# family's prefills share one set of frames; the vlm family's prompts are
+# text (its decode continues every stream at t)
 @pytest.mark.parametrize("arch", ARCHS)
 def test_decode_matches_prefill_incremental(arch, arch_setup):
     *_, cfg, params = arch_setup(arch)
@@ -117,13 +143,14 @@ def test_decode_matches_prefill_incremental(arch, arch_setup):
     model = get_model(cfg)
     windowed = any(k.window for k in cfg.layer_kinds)
     n0 = 10 if windowed else 8
-    tol = 5e-4 if cfg.family == "hybrid" else 2e-4
+    tol = 5e-4 if cfg.family in ("hybrid", "ssm") else 2e-4
     toks = torch.tensor(tp.tokens(7, (1, n0 + 4), cfg.vocab_size))
+    extra = {k: torch.tensor(v[:1]) for k, v in _batch(cfg, 7).items() if k == "frame_embeds"}
 
     def last_logits(n):
-        return model.prefill(cfg, params, {"tokens": toks[:, :n]}, 16)[0][0, 0].numpy()
+        return model.prefill(cfg, params, {"tokens": toks[:, :n], **extra}, 16)[0][0, 0].numpy()
 
-    lg, cache = model.prefill(cfg, params, {"tokens": toks[:, :n0]}, 16)
+    lg, cache = model.prefill(cfg, params, {"tokens": toks[:, :n0], **extra}, 16)
     np.testing.assert_allclose(lg[0, 0].numpy(), last_logits(n0), rtol=tol, atol=tol)
     for t in range(n0, n0 + 4):
         lg, cache = model.decode_step(cfg, params, cache, toks[:, t:t + 1])

@@ -254,10 +254,25 @@ def test_paged_engine_is_refused_like_the_reference(engine_setup):
 
 
 def test_xlstm_kinds_raise():
-    cfg = configs.get_config(ARCH, smoke=True)
-    for kind in ("mlstm", "slstm"):
-        bad = cfg.replace(pattern=(type(cfg.pattern[0])(kind),))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_model(bad).param_specs(bad)
-    with pytest.raises(NotImplementedError):
-        configs.get_config("xlstm-350m")
+    """The xLSTM kinds build on the dense surface; the paged surface refuses
+    them, and a kind no family has raises, with the
+    reference's messages."""
+    cfg = configs.get_config(ARCH, smoke=True)  # num_heads * head_dim == d_model
+    jcfg = jconfigs.get_config(ARCH, smoke=True)
+    for kind in ("mlstm", "slstm", "conv"):
+        xl = cfg.replace(pattern=(type(cfg.pattern[0])(kind),))
+        jxl = jcfg.replace(pattern=(type(jcfg.pattern[0])(kind),))
+        if kind == "conv":
+            with pytest.raises(ValueError, match="conv"):
+                get_model(xl).param_specs(xl)
+            with pytest.raises(ValueError, match="conv"):
+                jget_model(jxl).param_specs(jxl)
+            continue
+        assert num_params(xl) == jnum_params(jxl)
+        with pytest.raises(ValueError) as err:
+            get_model(xl).paged.check_support(xl)
+        with pytest.raises(ValueError) as jerr:
+            jget_model(jxl).paged.check_support(jxl)
+        assert str(err.value) == str(jerr.value) == \
+            f"paged decode supports attn-only models, got {kind!r}"
+    assert configs.get_config("xlstm-350m").family == "ssm"

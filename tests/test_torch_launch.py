@@ -10,7 +10,10 @@
   no tensor in a reference cycle;
 * ``launch.train.main`` at SMOKE size with ``--ckpt-dir`` and
   ``--preempt-at``: the resumed run ends where the uninterrupted one does,
-  bit for bit.
+  bit for bit;
+* the audio and vlm families' training batches against the reference's
+  keys, shapes and dtypes, a few SMOKE training steps of whisper,
+  qwen2-vl and xlstm, and whisper through ``launch.serve.main``.
 """
 from __future__ import annotations
 
@@ -179,7 +182,45 @@ def test_train_main_preempt_and_resume(tmp_path):
 
 
 def test_train_main_refuses_unported_families():
-    cfg = configs.get_config("qwen3-0.6b", smoke=True)
-    for family in ("audio", "vlm"):
-        with pytest.raises(NotImplementedError):
-            train_launch.build_batch_fn(cfg.replace(family=family), 2, 2, 8, device="cpu")
+    """Every family is ported: the audio and vlm batches carry the
+    reference's keys, shapes and dtypes (the values differ: the generators
+    do), with the vlm text cut to seq_len - vlm_patches(seq_len); a step's
+    batch is a function of (seed, step)."""
+    from repro.launch import train as jtrain_launch
+
+    K, Bc, seq = 2, 3, 16
+    for arch in ("whisper-base", "qwen2-vl-7b"):
+        jcfg = jconfigs.get_config(arch, smoke=True)
+        cfg = _interop.config_from(jcfg)
+        want = jtrain_launch.build_batch_fn(jcfg, K, Bc, seq, seed=4)(1)
+        fn = train_launch.build_batch_fn(cfg, K, Bc, seq, seed=4, device="cpu")
+        got = fn(1)
+        assert sorted(got) == sorted(want)
+        for key, ref in want.items():
+            assert tuple(got[key].shape) == tuple(ref.shape), (arch, key)
+            assert got[key].dtype == _interop.torch_dtype(ref.dtype), (arch, key)
+        for key in got:
+            assert torch.equal(got[key], fn(1)[key])
+        emb = got["frame_embeds" if arch == "whisper-base" else "patch_embeds"]
+        assert 0.01 < float(emb.std()) < 0.03 and not torch.equal(
+            emb, fn(2)["frame_embeds" if arch == "whisper-base" else "patch_embeds"])
+
+
+@pytest.mark.parametrize("arch", ["whisper-base", "qwen2-vl-7b", "xlstm-350m"])
+def test_train_main_runs_the_new_families(arch):
+    history = train_launch.main(["--arch", arch, "--smoke", "--device", "cpu", "--steps", "10",
+                                 "--chains", "2", "--batch", "1", "--seq", "16"])
+    assert len(history) >= 1 and np.isfinite(history[-1]["nll_per_token"])
+
+
+def test_serve_main_whisper_ensemble_and_single():
+    """The audio family through ``launch.serve.main``: random frame
+    embeddings for the stubbed frontend, the ensemble path and the
+    single-stream path."""
+    base = ["--arch", "whisper-base", "--smoke", "--device", "cpu", "--batch", "2",
+            "--prompt-len", "8", "--gen", "4"]
+    toks = serve_launch.main(base + ["--ensemble", "2"])
+    assert toks.shape == (2, 4) and int(toks.min()) >= 0 and int(toks.max()) < 512
+    assert serve_launch.main(base).shape == (2, 4)
+    with pytest.raises(ValueError, match="without --engine"):  # token prompts only
+        serve_launch.main(base + ["--engine"])

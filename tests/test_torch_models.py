@@ -157,12 +157,16 @@ def test_init_params_seeded_on_requested_device(shared):
 
 
 def test_unported_families_and_arches_raise():
-    for arch in ("xlstm-350m", "whisper-base"):
-        with pytest.raises(NotImplementedError):
-            configs.get_config(arch)
+    """Every arch of the reference is ported: each config loads;
+    an unknown arch raises KeyError, and the audio family gets the
+    encoder-decoder, with no paged surface, as in the reference."""
+    assert configs.PORTED == jconfigs.ARCH_IDS
+    for arch in configs.ARCH_IDS:
+        assert configs.get_config(arch).name == arch
     with pytest.raises(KeyError):
         configs.get_config("no-such-arch")
-    audio = _interop.config_from(jconfigs.get_config("whisper-base", smoke=True))
+    jaudio = jconfigs.get_config("whisper-base", smoke=True)
+    audio = _interop.config_from(jaudio)
     assert audio.family == "audio"
-    with pytest.raises(NotImplementedError):
-        get_model(audio)
+    assert get_model(audio).paged is None and jget_model(jaudio).paged is None
+    assert get_model(audio).prefill.__module__ == "repro_torch.models.encdec"

@@ -30,7 +30,9 @@ def test_importing_every_module_loads_no_jax():
             "repro_torch.launch.mesh", "repro_torch.models.moe",
             "repro_torch.configs.h2o_danube_1_8b", "repro_torch.configs.gemma2_27b",
             "repro_torch.configs.gemma3_27b", "repro_torch.configs.olmoe_1b_7b",
-            "repro_torch.configs.grok_1_314b"} <= set(mods)
+            "repro_torch.configs.grok_1_314b", "repro_torch.models.encdec",
+            "repro_torch.configs.xlstm_350m", "repro_torch.configs.qwen2_vl_7b",
+            "repro_torch.configs.whisper_base", "repro_torch.launch.specs"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

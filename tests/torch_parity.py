@@ -1,6 +1,6 @@
 """Shared checks of the port's language models against the reference's, on
-the CPU (used by ``test_torch_dense_configs.py``, ``test_torch_moe.py`` and
-``test_torch_arch_smoke.py``).
+the CPU (used by ``test_torch_dense_configs.py``, ``test_torch_moe.py``,
+``test_torch_arch_smoke.py`` and the xlstm, vlm and encdec files).
 
 Params are drawn by ``repro.models.init_params`` and carried across with
 ``_interop``; each check runs the reference and the port on the same
@@ -32,8 +32,13 @@ ATOL = 2e-5
 # logits (|l| <= 3.6) and 1.9e-4 on gemma2's cache leaves (|x| <= 21), and
 # the port by as much; on grok's embedding gradient (|g| <= 3.7) the port
 # is 1.5e-4 off and the reference 3.0e-5, and 1.2e-4 with the attention
-# softcap off.  So beyond ATOL a difference may reach SCALE_RTOL of the
-# compared tensor's largest magnitude (measured: 4.2e-5 at most, there).
+# softcap off.  qwen2-vl (no qk-norm either): the reference is 6.8e-5 off
+# on the third decode step's logits (|l| <= 3.1), 3.0e-4 on cache leaves
+# (|x| <= 22) and 2.4e-3 on the embedding gradient (|g| <= 52), the port
+# 6.8e-5, 1.8e-4 and 1.2e-3; xlstm: the reference 2.9e-5 on the sLSTM
+# state (|x| <= 15) and 2.6e-5 on the embedding gradient (|g| <= 1.5).  So
+# beyond ATOL a difference may reach SCALE_RTOL of the compared tensor's
+# largest magnitude (measured: 4.2e-5 at most, there).
 SCALE_RTOL = 5e-5
 
 
@@ -159,6 +164,27 @@ def check_train_nll(s, S=24):
     assert float(c) == float(jc) == 2 * S - 7
     np.testing.assert_allclose(float(n), float(jn), rtol=1e-6, atol=ATOL)
     return float(n)
+
+
+def check_grads(s, batch, scale_rtol=SCALE_RTOL):
+    """``train_nll``'s gradient of the mean NLL on ``batch`` (numpy arrays),
+    leaf by leaf: torch autograd against ``jax.grad``."""
+    from repro_torch.models.common import tree_unflatten
+
+    jcfg, jmodel, jparams, cfg, params = s
+
+    def jloss(p):
+        total, count = jmodel.train_nll(jcfg, p, {k: jnp.asarray(v) for k, v in batch.items()})
+        return total / count
+
+    jgrads = jax.tree.leaves(jax.grad(jloss)(jparams))
+    leaves = [a.clone().requires_grad_(True) for a in tree_leaves(params)]
+    total, count = get_model(cfg).train_nll(cfg, tree_unflatten(params, leaves),
+                                            {k: torch.tensor(v) for k, v in batch.items()})
+    grads = torch.autograd.grad(total / count, leaves)
+    assert len(grads) == len(jgrads)
+    for i, (g, jg) in enumerate(zip(grads, jgrads)):
+        assert_close(g, jg, scale_rtol=scale_rtol, what=f"grad leaf {i}")
 
 
 def engine_trace(mod_trace, n=4, prompt_lens=(5, 12), max_new=4):
