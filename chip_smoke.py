@@ -88,8 +88,8 @@ It imports torch, numpy and repro_torch only, and:
    with K = 4 and overlapped live refresh, then its ensemble path
    (``[serve-launch]``); the ``[slice]`` engine and 8 of its trace's
    requests frozen, with the sync ``ChainRefresher`` and with the
-   overlapped ``RefreshScheduler`` on a side CUDA stream (also once with the engine on a high-priority
-   stream), holding each overlapped run's final chain stack against the
+   overlapped ``RefreshScheduler`` on a side CUDA stream, holding each
+   overlapped run's final chain stack against the
    sync one's bit for bit (``[refresh]``), and fed by fused EC-SGHMC
    (``[refresh-ec]``); checkpointed training preempted and
    resumed bit for bit, a timed save/restore, a truncated checkpoint and
@@ -118,7 +118,17 @@ It imports torch, numpy and repro_torch only, and:
    the one card at the SMOKE size against a single-process run
    (``[shard-2rank]``); and compressed parking on the full-width paged
    engine (``[park]``);
-14. prints one JSON line of the six kernels (the serving kernels with their
+14. serving across ranks (``[serve-mesh]``): the full-width K=4 qwen3-0.6b
+   ensemble through ``ServeEngine(mesh=make_engine_mesh(1, 1))`` on a
+   one-rank NCCL group, dense and paged, bit for bit the unsharded engine
+   with the same launches and exact collectives per tick and admit; two
+   gloo ranks on the one card on a (2, 1) mesh, each serving two members,
+   with the unsharded tokens; and the same two ranks under overlapped
+   refresh by fused EC-SGHMC chains, every rank at the same registry
+   version at every tick; ``[serve-launch]`` and ``[refresh-ec]`` export
+   their traces, which ``repro_torch.obs.validate`` checks (profiles
+   ``serve`` and ``serve_ec``);
+15. prints one JSON line of the six kernels (the serving kernels with their
    launches on each serving path), the card line, and the result line.
 
 TF32 is off for matmuls and cuDNN (``allow_tf32 = False``), so f32
@@ -2442,15 +2452,20 @@ def phase_serve_launch(torch, card):
     from repro_torch.kernels import launches, reset_launches
     from repro_torch.launch import serve as serve_launch
 
+    from repro_torch.obs import trace as obs_trace
+
     common = ["--arch", "qwen3-0.6b", "--ensemble", "4", "--prompt-len", "128", "--gen", "32"]
+    trace_path = OUT / "serve_launch_trace.json"
     engine_args = common + ["--engine", "--slots", "8", "--requests", str(REFRESH_REQUESTS),
-                            "--refresh-every", str(REFRESH_EVERY)]
+                            "--refresh-every", str(REFRESH_EVERY), "--trace", str(trace_path)]
     reset_peak(torch)
     reset_launches()
     t0 = time.perf_counter()
     rep = serve_launch.main(engine_args)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    obs_trace.disable()  # main leaves its tracer installed
+    validated = check_trace(trace_path, "serve", "serve-launch")
     counts, peak = dict(launches), torch.cuda.max_memory_allocated()
     check_served(rep, REFRESH_REQUESTS, 32, QWEN_V, "serve-launch")
     rf = rep.refresher
@@ -2470,7 +2485,7 @@ def phase_serve_launch(torch, card):
     if min(counts["flash_attention"], counts["bma_select"]) <= 0:
         raise AssertionError(f"serve-launch missed a kernel of its path: {counts}")
     engine = dict(tokens_per_s=rep.tokens_per_s, promotions=rf["promotions"], peak=peak,
-                  launches=counts, refresher=rf, **pct)
+                  launches=counts, refresher=rf, trace=validated, **pct)
     del rep
     reset_peak(torch)
     reset_launches()
@@ -2486,6 +2501,20 @@ def phase_serve_launch(torch, card):
         raise AssertionError(f"serve-launch ensemble path missed flash_attention: {counts2}")
     reset_peak(torch)
     return dict(engine=engine, ensemble=dict(wall=wall, launches=counts2, peak=peak2))
+
+
+def check_trace(path, profile, label):
+    """``repro_torch.obs.validate`` on an exported trace with ``--require
+    profile``; its lines are printed, and a trace it refuses fails the
+    phase."""
+    from repro_torch.obs import validate
+
+    rc = validate.main([str(path), "--require", profile])
+    events = len(json.loads(pathlib.Path(path).read_text())["traceEvents"])
+    log(f"[{label}] trace {path.name}: {events} events, validator exit {rc} (profile {profile})")
+    if rc != 0:
+        raise AssertionError(f"[{label}] the trace fails the {profile} profile")
+    return dict(path=str(path.relative_to(ROOT)), events=events, profile=profile)
 
 
 def refresh_setup(torch, card):
@@ -2521,7 +2550,7 @@ def refresh_setup(torch, card):
                             max_new=32, seed=0)
     kw = dict(num_slots=8, max_seq=128 + 32, paged=True, device="cuda")
 
-    def serve(label, mode=None, sampler=None, tag="refresh", high_priority=False):
+    def serve(label, mode=None, sampler=None, tag="refresh", sync_every=None):
         reg = SnapshotRegistry(tree_map(lambda a: a.to("cuda"), host_members))
         ref = None
         if mode is not None:
@@ -2530,22 +2559,14 @@ def refresh_setup(torch, card):
             cls = RefreshScheduler if mode == "overlapped" else ChainRefresher
             ref = cls(reg, sampler or core.sgld(step_size=serve_launch._EPS),
                       serve_launch._prior_grad(center), start, key=rnglib.fold_in(key, 2),
-                      chunk_steps=16, total_steps=REFRESH_TOTAL_STEPS)
+                      chunk_steps=16, total_steps=REFRESH_TOTAL_STEPS,
+                      **({"sync_every": sync_every} if sync_every else {}))
             del center, start
         eng = ServeEngine(cfg, model, reg, refresher=ref,
                           refresh_every=REFRESH_EVERY if ref is not None else 0, **kw)
         reset_peak(torch)
         reset_launches()
-        if high_priority:
-            # the engine's launches on a stream of the card's highest
-            # priority, the side stream at the default (lowest) one
-            hp = torch.cuda.Stream(priority=torch.cuda.Stream.priority_range()[1])
-            hp.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(hp):
-                rep = eng.run(trace)
-            torch.cuda.current_stream().wait_stream(hp)
-        else:
-            rep = eng.run(trace)
+        rep = eng.run(trace)
         torch.cuda.synchronize()
         counts, peak = dict(launches), torch.cuda.max_memory_allocated()
         check_served(rep, len(trace), 32, QWEN_V, f"{tag} {label}")
@@ -2588,10 +2609,10 @@ def phase_refresh(torch, card, setup):
     """The ``[slice]`` paged engine and 8 of its trace's requests with the sync
     ``ChainRefresher``, then ``REFRESH_PAIRS`` back-to-back (frozen,
     overlapped ``RefreshScheduler``) pairs, over the launcher's SGLD on the
-    bootstrap prior, then one overlapped run with the engine on a stream of
-    the card's highest priority (an experiment, not a path of the port).
-    Each overlapped run's final chain stack must equal the sync one's bit
-    for bit after the same total steps."""
+    bootstrap prior.  Each overlapped run's final chain stack must equal
+    the sync one's bit for bit after the same total steps.  (Serving at a
+    high stream priority, an experiment that ran here through PR 22, waits
+    for a benchmark cell: ROADMAP 5d.)"""
     from repro_torch.models import tree_leaves, tree_map
 
     serve = setup["serve"]
@@ -2634,21 +2655,8 @@ def phase_refresh(torch, card, setup):
         f"median {p99_ratio:.3f} (DESIGN.md section 9 target <= 1.2); overlapped/sync tok/s "
         f"{over_tps:.2f}/{sync_row['tokens_per_s']:.2f} = {tps_ratio:.2f}x (target >= 2x); "
         f"recorded, not asserted [{card}]")
-    # not a path of the port: does the decode lose to the sampler's kernels
-    # for the card's SMs? The same overlapped run, serving at high priority
-    reg, ref, prio = serve("overlapped, serving stream at high priority", "overlapped",
-                           high_priority=True)
-    matches.append(check_final(reg, ref, "overlapped at high serving priority"))
-    del reg, ref
-    frozen_tps = float(np.median([f["tokens_per_s"] for f, _ in rows]))
-    frozen_p99 = float(np.median([f["latency_p99_s"] for f, _ in rows]))
-    log(f"[refresh] serving at high priority: {prio['tokens_per_s']:.2f} tok/s = "
-        f"{prio['tokens_per_s'] / frozen_tps:.2f}x the frozen median and "
-        f"{prio['tokens_per_s'] / sync_row['tokens_per_s']:.2f}x sync; p99 "
-        f"{prio['latency_p99_s'] / frozen_p99:.3f}x the frozen median (default priority: "
-        f"{over_tps / frozen_tps:.2f}x, {tps_ratio:.2f}x) [{card}]")
     reset_peak(torch)
-    return dict(sync=sync_row, pairs=rows, prio=prio, p99_ratio=p99_ratio, tps_ratio=tps_ratio,
+    return dict(sync=sync_row, pairs=rows, p99_ratio=p99_ratio, tps_ratio=tps_ratio,
                 over_tps=over_tps, bitwise=matches, bootstrap_s=setup["bootstrap_s"],
                 bootstrap_peak=setup["bootstrap_peak"])
 
@@ -2658,13 +2666,20 @@ def phase_refresh_ec(torch, card, setup, sgld_tps):
     EC-SGHMC (Philox, K = 4, sync every 4) over the same prior: at least
     one promotion and 13 ``fused_ec_update`` launches per sampler step."""
     from repro_torch import core
+    from repro_torch.obs import trace as obs_trace
 
     samp = core.ec_sghmc(step_size=EC_REFRESH_STEP, alpha=1.0, friction=1.0,
                          center_friction=1.0, sync_every=4, fused=True,
                          state_dtype=setup["cfg"].param_dtype)
-    reg, ref, ec = setup["serve"]("overlapped RefreshScheduler, fused EC-SGHMC (Philox, K=4, "
-                                  f"s=4, eps {EC_REFRESH_STEP:g})", "overlapped", samp,
-                                  tag="refresh-ec")
+    tracer = obs_trace.enable()
+    try:
+        reg, ref, ec = setup["serve"]("overlapped RefreshScheduler, fused EC-SGHMC (Philox, "
+                                      f"K=4, s=4, eps {EC_REFRESH_STEP:g}), traced",
+                                      "overlapped", samp, tag="refresh-ec", sync_every=4)
+        tracer.export(OUT / "refresh_ec_trace.json")
+    finally:
+        obs_trace.disable()
+    ec["trace"] = check_trace(OUT / "refresh_ec_trace.json", "serve_ec", "refresh-ec")
     n_leaves = setup["n_leaves"]
     want = n_leaves * ec["steps_done"]
     log(f"[refresh-ec] fused_ec_update launches {ec['launches']['fused_ec_update']} for "
@@ -3306,6 +3321,290 @@ def phase_park(torch, card):
                 restore_ms=restore_ms, park2_ms=park2_ms, restore2_ms=restore2_ms, worst=worst)
 
 
+# ---------------------------------------------------------------------------
+# serving across ranks
+# ---------------------------------------------------------------------------
+
+MESH_REQUESTS = 8  # [slice]'s prompt lengths (64, 128), the 8 arriving together
+MESH_NEW = 8
+# (c) cuts qwen3-0.6b's depth to 4 of 28 layers: each rank holds the whole
+# K=4 EC-SGHMC carry (~29 GB at full depth, plus staged candidates), and two
+# such ranks do not fit one 80 GB card beside their engines
+MESH_REFRESH_LAYERS = 4
+MESH_REFRESH_NEW = 16  # ~16 ticks: 32 sampler steps, 2 proposals at chunk 16
+
+
+def mesh_trace(vocab, max_new=MESH_NEW):
+    from repro_torch.serve.engine import synthetic_trace
+
+    return synthetic_trace(MESH_REQUESTS, vocab_size=vocab, prompt_lens=(64, 128),
+                           max_new=max_new, mean_interarrival=1e-3, seed=0)
+
+
+def _count_delta(a, b):
+    return {op: {k: b[op][k] - a[op][k] for k in ("calls", "bytes")} for op in a}
+
+
+def mesh_serve(torch, cfg, model, members, trace, mesh=None, paged=False, record=True,
+               refresher=None, refresh_every=0):
+    """One ``ServeEngine.run`` over ``trace`` (8 slots, on ``mesh`` where
+    given) with every launch count and the collective counter set to 0 just
+    before it.  Returns the report, the launches, per admit and tick (and
+    between them) the collectives, the registry version at each tick, and
+    the host seconds of the tick's gathers (between synchronizes: the tick
+    waits for its emissions on the host anyway)."""
+    from repro_torch.distributed import collective_counts, reset_collective_counts
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.serve.engine import ServeEngine
+
+    max_new = max(r.max_new for r in trace)
+    eng = ServeEngine(cfg, model, members, num_slots=8, max_seq=128 + max_new,
+                      record_logprobs=record, paged=paged, mesh=mesh, refresher=refresher,
+                      refresh_every=refresh_every, device="cuda")
+    log, versions, gather_s, last = [], [], [0.0], [None]
+
+    def wrap(kind, fn):
+        def call(*args, **kw):
+            before = collective_counts()
+            log.append(("between", _count_delta(last[0], before)))
+            if kind == "tick":
+                versions.append(eng.registry.version)
+            out = fn(*args, **kw)
+            last[0] = collective_counts()
+            log.append((kind, _count_delta(before, last[0])))
+            return out
+        return call
+
+    def timed_gather(fn):
+        def call(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            gather_s[0] += time.perf_counter() - t0
+            return out
+        return call
+
+    if mesh is not None:
+        eng._gather_members = timed_gather(eng._gather_members)
+        eng._gather_slots = timed_gather(eng._gather_slots)
+    eng._decode = wrap("tick", eng._decode)
+    eng._admit = wrap("admit", eng._admit)
+    torch.cuda.synchronize()
+    reset_launches()
+    reset_collective_counts()
+    last[0] = collective_counts()
+    rep = eng.run(trace)
+    torch.cuda.synchronize()
+    log.append(("between", _count_delta(last[0], collective_counts())))
+    counts = dict(launches)
+    check_report(rep, trace, cfg.vocab_size, "serve-mesh")
+    return dict(rep=rep, launches=counts, log=log, versions=versions, gather_s=gather_s[0],
+                k_local=eng._k_local)
+
+
+def check_collectives(run, admit, tick, between, label):
+    """Every admit, tick and the host work between them issued exactly the
+    collectives given (``between`` None: not checked)."""
+    want = {"admit": admit, "tick": tick, "between": between}
+    none = {"calls": 0, "bytes": 0}
+    for kind, delta in run["log"]:
+        if want[kind] is None:
+            continue
+        exp = {"all_reduce": none, "all_gather": none, **want[kind]}
+        if delta != exp:
+            raise AssertionError(f"[serve-mesh] {label}: a {kind} issued {delta}, expected {exp}")
+
+
+def gathers(k, s, V, slot_cols=None):
+    """The all-gathers of an admit and a tick: the member gather of the f32
+    (K_local, V) / (K_local, S_local, V) logits, and (``slot_cols``) the
+    slot gather of S_local rows of that many int32 columns."""
+    admit = {"all_gather": {"calls": 1, "bytes": 4 * k * V}}
+    calls, nbytes = 1, 4 * k * s * V
+    if slot_cols is not None:
+        calls, nbytes = 2, nbytes + 4 * s * slot_cols
+    return admit, {"all_gather": {"calls": calls, "bytes": nbytes}}
+
+
+def mesh_row(run, label, card):
+    rep = run["rep"]
+    ticks = max(rep.decode_steps, 1)
+    pct = rep.latency_percentiles()
+    log(f"[serve-mesh] {label}: {rep.total_tokens} tokens, {rep.decode_steps} ticks, "
+        f"{rep.tokens_per_s:.2f} tok/s, latency p50 {pct['latency_p50_s']:.3f} s p99 "
+        f"{pct['latency_p99_s']:.3f} s, wall {rep.wall_s:.2f} s; gathers "
+        f"{1e3 * run['gather_s'] / ticks:.2f} ms per tick (host, synchronized); launches "
+        f"{run['launches']} [{card}]")
+    return dict(tokens_per_s=rep.tokens_per_s, ticks=rep.decode_steps, wall_s=rep.wall_s,
+                gather_ms_per_tick=1e3 * run["gather_s"] / ticks, launches=run["launches"],
+                **pct)
+
+
+def serve_mesh_rank(rank, world):
+    """[serve-mesh]'s two gloo ranks on cuda:0, mesh (2, 1): (b) full-width
+    qwen3-0.6b K = 4, greedy, each rank serving its two members; (c) the
+    same at ``MESH_REFRESH_LAYERS`` layers under overlapped refresh by
+    fused EC-SGHMC chains (each rank's scheduler over the whole K = 4
+    carry).  Returns tokens, launches, collectives and versions."""
+    import torch
+
+    from repro_torch import configs, core
+    from repro_torch.core import rng as rnglib
+    from repro_torch.launch import serve as serve_launch
+    from repro_torch.launch.mesh import make_engine_mesh
+    from repro_torch.models import get_model, tree_leaves, tree_map
+    from repro_torch.serve.engine import RefreshScheduler, ServeEngine, SnapshotRegistry
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_engine_mesh(2, 1)
+    out = {}
+    cfg = configs.get_config("qwen3-0.6b").replace(use_flash_kernel=True)
+    model = get_model(cfg)
+    members = stacked_members(torch, cfg, model, 4, "cuda")
+    ServeEngine(cfg, model, members, num_slots=8, max_seq=130, mesh=mesh,
+                device="cuda").run(warmup_trace(cfg.vocab_size))
+    torch.cuda.reset_peak_memory_stats()
+    run = mesh_serve(torch, cfg, model, members, mesh_trace(cfg.vocab_size), mesh=mesh,
+                     record=False)
+    del members
+    gc.collect()
+    torch.cuda.empty_cache()
+    rep = run.pop("rep")
+    out["b"] = dict(run, tokens={r.rid: r.tokens.tolist() for r in rep.results},
+                    decode_steps=rep.decode_steps, tokens_per_s=rep.tokens_per_s,
+                    wall_s=rep.wall_s, pct=rep.latency_percentiles(),
+                    peak=torch.cuda.max_memory_allocated())
+    torch.cuda.reset_peak_memory_stats()
+    cfg = cfg.replace(num_layers=MESH_REFRESH_LAYERS)
+    model = get_model(cfg)
+    specs = model.param_specs(cfg)
+    key = rnglib.key(0)
+    reg = SnapshotRegistry(stacked_members(torch, cfg, model, 4, "cuda"))
+    center = serve_launch._init(specs, key, "cuda")
+    start = tree_map(lambda x: x[None].expand((4,) + tuple(x.shape)).contiguous(), center)
+    samp = core.ec_sghmc(step_size=EC_REFRESH_STEP, alpha=1.0, friction=1.0,
+                         center_friction=1.0, sync_every=4, fused=True,
+                         state_dtype=cfg.param_dtype)
+    ref = RefreshScheduler(reg, samp, serve_launch._prior_grad(center), start,
+                           key=rnglib.fold_in(key, 2), chunk_steps=16, total_steps=64,
+                           sync_every=4)
+    del center, start
+    run = mesh_serve(torch, cfg, model, reg, mesh_trace(cfg.vocab_size, MESH_REFRESH_NEW),
+                     mesh=mesh, record=False, refresher=ref, refresh_every=REFRESH_EVERY)
+    rep = run.pop("rep")
+    out["c"] = dict(run, tokens={r.rid: r.tokens.tolist() for r in rep.results},
+                    decode_steps=rep.decode_steps, refresher=rep.refresher,
+                    version=reg.version, n_leaves=len(tree_leaves(reg.members)),
+                    spare=ref.device, peak=torch.cuda.max_memory_allocated())
+    return out
+
+
+def phase_serve_mesh(torch, card):
+    """The sharded engine: (a) full-width qwen3-0.6b K = 4 through
+    ``ServeEngine(mesh=make_engine_mesh(1, 1))`` on a one-rank NCCL group,
+    dense and paged, against the unsharded engine in this call: tokens and
+    logp bit for bit, the same launches, exact collectives per admit and
+    tick and none between; (b) and (c) on two gloo ranks spawned on cuda:0
+    (``serve_mesh_rank``): the unsharded tokens, flash 28 times per local
+    member per admit and bma_select once per tick on each rank; under
+    overlapped refresh, one registry version on both ranks at every tick
+    and at least one promotion."""
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.launch.mesh import initialize_distributed, make_engine_mesh, spawn_local
+    from repro_torch.models import get_model
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = configs.get_config("qwen3-0.6b").replace(use_flash_kernel=True)
+    model = get_model(cfg)
+    V, L = cfg.vocab_size, cfg.num_layers
+    members = stacked_members(torch, cfg, model, 4, "cuda")
+    trace = mesh_trace(V)
+    ServeEngine(cfg, model, members, num_slots=8, max_seq=130,
+                device="cuda").run(warmup_trace(V))
+    runs, rows, out = {}, {}, {}
+    rdzv = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
+    initialize_distributed(backend="nccl", init_method=f"file://{rdzv}/rdzv", world_size=1,
+                           rank=0)
+    try:
+        mesh = make_engine_mesh(1, 1)
+        log(f"[serve-mesh] one-rank {dist.get_backend()} process group, mesh {mesh}")
+        # NCCL makes each group's communicator at its first collective (~0.5 s)
+        ServeEngine(cfg, model, members, num_slots=8, max_seq=130, mesh=mesh,
+                    device="cuda").run(warmup_trace(V))
+        # whole, mesh, mesh, whole: the order of a two-version comparison
+        for label, m, paged in (("unsharded dense", None, False),
+                                ("nccl (1, 1) dense", mesh, False),
+                                ("nccl (1, 1) paged", mesh, True),
+                                ("unsharded paged", None, True)):
+            runs[label] = mesh_serve(torch, cfg, model, members, trace, mesh=m, paged=paged)
+            rows[label] = mesh_row(runs[label], label, card)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(rdzv, ignore_errors=True)
+    for mode in ("dense", "paged"):
+        whole, sharded = runs[f"unsharded {mode}"], runs[f"nccl (1, 1) {mode}"]
+        same = all(np.array_equal(a.tokens, b.tokens) and np.array_equal(a.logprobs, b.logprobs)
+                   for a, b in zip(whole["rep"].results, sharded["rep"].results))
+        admit, tick = gathers(4, 8, V, None if mode == "paged" else 4 + V)
+        check_collectives(sharded, admit, tick, {}, f"nccl {mode}")
+        log(f"[serve-mesh] nccl (1, 1) {mode} vs unsharded: tokens and logp bitwise equal "
+            f"{same}; launches {sharded['launches']} vs {whole['launches']}; per admit "
+            f"{admit}, per tick {tick}, none between: exact")
+        if not same or sharded["launches"] != whole["launches"]:
+            raise AssertionError(f"[serve-mesh] nccl {mode}: the mesh engine differs from the "
+                                 "unsharded one")
+    want_tokens = {r.rid: r.tokens.tolist() for r in runs["unsharded dense"]["rep"].results}
+    out.update(rows=rows, launches={k: v["launches"] for k, v in runs.items()})
+    del members, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = spawn_local(serve_mesh_rank, 2, backend="gloo", timeout_s=420)
+    spawn_s = time.perf_counter() - t0
+    admit, tick = gathers(2, 8, V, 4)
+    for r, rk in enumerate(ranks):
+        b = rk["b"]
+        check_collectives(b, admit, tick, {}, f"gloo rank {r}")
+        admits = sum(1 for kind, _ in b["log"] if kind == "admit")
+        want = {"flash_attention": L * 2 * admits, "paged_attention": 0,
+                "bma_select": b["decode_steps"]}
+        got = {n: b["launches"][n] for n in SERVING_KERNELS}
+        log(f"[serve-mesh] gloo rank {r} of (2, 1), members {2 * r}-{2 * r + 1}: "
+            f"{b['decode_steps']} ticks, {b['tokens_per_s']:.2f} tok/s, wall {b['wall_s']:.2f} s, "
+            f"gathers {1e3 * b['gather_s'] / max(b['decode_steps'], 1):.2f} ms per tick (host, "
+            f"staged through the host); tokens equal to the unsharded run "
+            f"{b['tokens'] == want_tokens}; launches {got}, expected {want}; peak "
+            f"{gib(b['peak'])} (the whole K=4 stack drawn, two members kept) [{card}]")
+        if b["tokens"] != want_tokens or got != want:
+            raise AssertionError(f"[serve-mesh] gloo rank {r}: tokens or launches differ")
+    c0, c1 = ranks[0]["c"], ranks[1]["c"]
+    for r, c in enumerate((c0, c1)):
+        rf = c["refresher"]
+        want_ec = c["n_leaves"] * rf["steps_done"]
+        log(f"[serve-mesh] refresh, gloo rank {r}: qwen3-0.6b widths at {MESH_REFRESH_LAYERS} "
+            f"layers, {c['decode_steps']} ticks, versions by tick {c['versions']}, final "
+            f"{c['version']}; promotions {rf['promotions']}, {rf['steps_done']} sampler steps in "
+            f"{rf['micro_chunks']} micro-chunks, deferred flips {rf['flips_deferred']}, stalled "
+            f"{rf['decode_steps_stalled']}; fused_ec_update {c['launches']['fused_ec_update']} "
+            f"(expected {want_ec}); spare device {c['spare']}; peak {gib(c['peak'])} [{card}]")
+        if c["launches"]["fused_ec_update"] != want_ec or want_ec <= 0:
+            raise AssertionError(f"[serve-mesh] refresh rank {r}: fused launches")
+    if c0["versions"] != c1["versions"] or c0["version"] != c1["version"] or c0["version"] < 1 \
+            or c0["tokens"] != c1["tokens"]:
+        raise AssertionError("[serve-mesh] the ranks' registries or tokens disagree under refresh")
+    log(f"[serve-mesh] two gloo ranks on one card took {spawn_s:.1f} s, spawn, imports and "
+        "drawing included; their times say nothing of NVLink")
+    out.update(spawn_s=spawn_s, gloo={r: {k: v for k, v in rk["b"].items() if k != "log"}
+                                      for r, rk in enumerate(ranks)},
+               refresh={r: {k: v for k, v in rk["c"].items() if k != "log"}
+                        for r, rk in enumerate(ranks)})
+    return out
+
+
 def main() -> int:
     # set before the first CUDA allocation: [refresh-ec] holds ~68 GiB of
     # live stacks on an 80 GB card, and without expandable segments the
@@ -3421,6 +3720,7 @@ def main() -> int:
     shard = timed("shard", phase_shard, torch, card, train)
     shard_2rank = timed("shard-2rank", phase_shard_2rank, torch, card)
     park = timed("park", phase_park, torch, card)
+    serve_mesh = timed("serve-mesh", phase_serve_mesh, torch, card)
 
     f128 = next(r for r in flash if r["S"] == 128 and r["softcap"] is None)
     bg = next(r for r in bma if r["mode"] == "probs" and r["T"] == 0.0)
@@ -3453,7 +3753,11 @@ def main() -> int:
             **{f"slice-moe/{a}": c[name] for a, c in moe_counts.items()},
             "slice-xlstm": xlstm_counts[name],
             **{f"slice-vlm/{p}": c[name] for p, c in vlm_counts.items()},
-            "slice-audio": audio_counts[name]}
+            "slice-audio": audio_counts[name],
+            **{f"serve-mesh/{label}": c[name] for label, c in serve_mesh["launches"].items()
+               if label.startswith("nccl")},
+            **{f"serve-mesh/gloo rank {r}": g["launches"][name]
+               for r, g in serve_mesh["gloo"].items()}}
     # the fused kernel's launches on each of its paths, each counted from 0
     kernels[3]["launches_by_path"] = {
         "train": train_counts["fused_ec_update"],
@@ -3461,7 +3765,9 @@ def main() -> int:
         **{f"paper-mlp/{j}": n for j, n in mlp_counts.items() if n},
         **{f"paper-resnet/{j}": n for j, n in resnet_counts.items() if n},
         "shard": shard["raw"]["launches"], "shard-int8": shard["int8"]["launches"],
-        "shard-2rank": shard_2rank["alpha 1"]["launches"]}
+        "shard-2rank": shard_2rank["alpha 1"]["launches"],
+        **{f"serve-mesh/refresh rank {r}": c["launches"]["fused_ec_update"]
+           for r, c in serve_mesh["refresh"].items()}}
     (OUT / "result.json").write_text(json.dumps({"card": card, "kernels": kernels,
                                                   "flash": flash, "flash256": flash256,
                                                   "paged": paged, "ptxas": ptxas,
@@ -3487,6 +3793,7 @@ def main() -> int:
                                                   "paper_resnet": paper_resnet,
                                                   "codec": codec, "shard": shard,
                                                   "shard_2rank": shard_2rank, "park": park,
+                                                  "serve_mesh": serve_mesh,
                                                   "phase_s": phase_s},
                                                  indent=1, default=str))
     print(json.dumps({"kernels": kernels}))

@@ -9,6 +9,7 @@ from .collectives import (
     axis,
     bind_axis,
     collective_counts,
+    host_world,
     mesh_axis,
     reset_collective_counts,
 )
@@ -23,7 +24,7 @@ from .compression import (
     packed_nbytes,
     sync_wire_bytes,
 )
-from .sharding import chain_specs, gather_chains, local_chains
+from .sharding import chain_specs, gather_chains, leading_axes_specs, local_block, local_chains
 
 __all__ = [
     "AxisBinding",
@@ -40,7 +41,10 @@ __all__ = [
     "decode_packed",
     "encode_packed",
     "gather_chains",
+    "host_world",
     "int8_codec",
+    "leading_axes_specs",
+    "local_block",
     "local_chains",
     "mesh_axis",
     "packed_nbytes",

@@ -9,13 +9,13 @@ such scope, so ``bind_axis`` opens one: within it, ``axis(name)`` gives the
 size) that ``ChainExecutor.run_sharded`` bound; outside it ``axis`` raises
 ``NameError``, as an unbound axis name does in JAX.
 
-Every collective the port issues goes through ``all_reduce_sum`` or
-``all_gather`` here, which count it, by op and payload bytes, in the
-``distributed.collectives`` counters of the default metrics registry
-(``collective_counts``).  That count replaces the reference's reading of
-the lowered program's text (``lower_sharded``): eager torch has no
-lowered program, and the one-collective-per-sync contract is checked on
-the counter instead.  A gloo group takes CUDA tensors through host copies
+Every collective the port issues goes through ``all_reduce_sum``,
+``all_reduce_min`` or ``all_gather`` here, which count it, by op and
+payload bytes, in the ``distributed.collectives`` counters of the default
+metrics registry (``collective_counts``).  That count replaces the
+reference's reading of the lowered program's text (``lower_sharded``):
+eager torch has no lowered program, and the one-collective-per-sync
+contract is checked on the counter instead.  A gloo group takes CUDA tensors through host copies
 (gloo's collectives run on the host); NCCL takes them as they are.
 """
 from __future__ import annotations
@@ -100,18 +100,49 @@ def _on_host(group, t) -> bool:
     return t.is_cuda and dist.get_backend(group) == "gloo"
 
 
-def all_reduce_sum(buf: torch.Tensor, ax: AxisBinding) -> torch.Tensor:
-    """Sum ``buf`` over the axis, in place (every rank gets the same bits:
-    gloo and NCCL both hand every rank the one reduced result)."""
+def _all_reduce(buf, ax, op):
     import torch.distributed as dist
 
     _count("all_reduce", buf.numel() * buf.element_size())
     if _on_host(ax.group, buf):
         host = buf.cpu()
-        dist.all_reduce(host, op=dist.ReduceOp.SUM, group=ax.group)
+        dist.all_reduce(host, op=op, group=ax.group)
         return buf.copy_(host)
-    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=ax.group)
+    dist.all_reduce(buf, op=op, group=ax.group)
     return buf
+
+
+def all_reduce_sum(buf: torch.Tensor, ax: AxisBinding) -> torch.Tensor:
+    """Sum ``buf`` over the axis, in place (every rank gets the same bits:
+    gloo and NCCL both hand every rank the one reduced result)."""
+    import torch.distributed as dist
+
+    return _all_reduce(buf, ax, dist.ReduceOp.SUM)
+
+
+def all_reduce_min(buf: torch.Tensor, ax: AxisBinding) -> torch.Tensor:
+    """The elementwise minimum of ``buf`` over the axis, in place (counted
+    as an all-reduce)."""
+    import torch.distributed as dist
+
+    return _all_reduce(buf, ax, dist.ReduceOp.MIN)
+
+
+def host_world(mesh) -> AxisBinding:
+    """Every rank of ``mesh`` as one axis on a gloo group: for agreement
+    among ranks on host values (flags, device ids) that must not wait on a
+    device stream.  The mesh must span the default process group.  Under a
+    gloo default group this is the world group; under NCCL a gloo group
+    over the same ranks is made, which is a collective call (every rank
+    makes it)."""
+    import torch.distributed as dist
+
+    world = dist.get_world_size()
+    if mesh.size() != world:
+        raise ValueError(f"the mesh holds {mesh.size()} ranks; it must span all {world} ranks "
+                         "of the process group")
+    group = dist.group.WORLD if dist.get_backend() == "gloo" else dist.new_group(backend="gloo")
+    return AxisBinding(group, dist.get_rank(), world)
 
 
 def all_gather(x: torch.Tensor, ax: AxisBinding) -> torch.Tensor:

@@ -16,16 +16,26 @@ reference.
   all-gather per split tensor): what a global ``jax.Array`` is in the
   reference, for tests and checks after a run.
 
-Not ported here: ``build_spec``, ``tree_specs``, the logical-axis rule
-tables and ``leading_axes_specs``.  They are GSPMD layouts for the dry-run
-cells and the mesh-sharded serving engine, and come with those (ROADMAP
-items 15 and 10b).
+The serving engine's layout rule is the reference's too: ``leading_axes_specs``
+grants mesh axis ``axes[i]`` to a tensor's i-th leading dim where the mesh
+has that axis and its size divides the dim (else that dim replicates), and
+``local_block`` cuts a rank's block of a tree by those specs.
+
+Not ported here: ``build_spec``, ``tree_specs`` and the logical-axis rule
+tables.  They are GSPMD layouts for the dry-run cells and come with them
+(ROADMAP item 15).
 """
 from __future__ import annotations
 
 from repro_torch.models.common import map_tensors
 
 from . import collectives
+
+
+def _axis_sizes(mesh) -> dict:
+    """{axis name: size} of a ``DeviceMesh`` (or anything with
+    ``mesh_dim_names`` and ``shape``)."""
+    return dict(zip(tuple(mesh.mesh_dim_names or ()), tuple(mesh.shape)))
 
 
 def chain_specs(tree, num_chains: int, axis_name: str = "chain"):
@@ -63,3 +73,34 @@ def gather_chains(tree, mesh, num_chains: int, axis_name: str = "chain", specs=N
     return map_tensors(
         lambda x, s: collectives.all_gather(x, ax).reshape((-1,) + tuple(x.shape[1:])) if s
         else x, tree, specs)
+
+
+def leading_axes_specs(tree, axes, mesh):
+    """Per tensor, a tuple granting ``axes[i]`` to its i-th LEADING dim when
+    the mesh has that axis and the axis size divides the dim (else None:
+    that dim replicates); as long as the shorter of ``axes`` and the
+    tensor's dims.  The reference's PartitionSpec rule, as a tree: pooled
+    caches are (member, slot, ...), slot state (slot, ...), member stacks
+    (member, ...)."""
+    sizes = _axis_sizes(mesh)
+
+    def spec(x):
+        return tuple(name if name is not None and name in sizes and x.shape[i] % sizes[name] == 0
+                     else None for i, name in enumerate(axes[:x.ndim]))
+
+    return map_tensors(spec, tree)
+
+
+def local_block(tree, specs, mesh):
+    """This rank's block of a global tree: every dim a spec grants an axis
+    cut to the rank's contiguous share along it (views, no copy), the
+    other dims whole."""
+    def cut(x, spec):
+        for dim, name in enumerate(spec):
+            if name is not None:
+                ax = collectives.mesh_axis(mesh, name)
+                n = x.shape[dim] // ax.size
+                x = x.narrow(dim, ax.rank * n, n)
+        return x
+
+    return map_tensors(cut, tree, specs)

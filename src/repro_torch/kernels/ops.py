@@ -190,11 +190,13 @@ def rglru_scan(a, x, h0=None):
 # --- fused BMA mixture + selection -------------------------------------------
 
 
-def fused_bma_select(logits, generator=None, *, mode="probs", temperature=0.0, top_k=0):
+def fused_bma_select(logits, generator=None, *, mode="probs", temperature=0.0, top_k=0,
+                     gumbel=None):
     """(K, S, V) member logits -> (tokens (S,) int32, mixture logp (S, V)
     f32) in one kernel.  The Gumbel draw happens HERE, from ``generator``,
     exactly as ``sampling.select_tokens`` draws it, so sampled tokens of
-    the fused and unfused paths are bit-identical given the same mixture."""
+    the fused and unfused paths are bit-identical given the same mixture;
+    ``gumbel`` (S, V) f32, when given, is the draw instead."""
     from repro_torch.serve.sampling import gumbel_noise
 
     if mode not in ("probs", "logprobs"):
@@ -211,11 +213,18 @@ def fused_bma_select(logits, generator=None, *, mode="probs", temperature=0.0, t
     _require_contiguous(logits=logits)
     on_card = _on_card(logits)
     logits = logits.float()
-    gumbel = None
-    if temperature > 0.0:
+    if temperature <= 0.0:
+        gumbel = None
+    elif gumbel is None:
         if generator is None:
             raise ValueError("temperature > 0 sampling needs a generator")
         gumbel = gumbel_noise((S, V), generator, logits.device)
+    elif tuple(gumbel.shape) != (S, V) or gumbel.dtype != torch.float32:
+        raise ValueError(f"gumbel must be ({S}, {V}) float32, got {tuple(gumbel.shape)} "
+                         f"{gumbel.dtype}")
+    else:
+        _require_contiguous(gumbel=gumbel)
+        _on_card(logits, gumbel)
     if not on_card:
         return ref.bma_select(logits, gumbel, mode=mode, temperature=temperature, top_k=top_k)
     from . import bma_select as _bs

@@ -8,6 +8,8 @@
   entry points can call it unconditionally.
 * ``make_chain_mesh`` — the 1-D ``(chain,)`` ``DeviceMesh`` over the
   process group's ranks that ``ChainExecutor.run_sharded`` takes.
+* ``make_engine_mesh`` — the 2-D ``(member, slot)`` ``DeviceMesh`` the
+  sharded ``ServeEngine`` takes.
 * ``spawn_local`` — the single-host launcher, the counterpart of the
   reference's forced-device environment: W local ranks started with the
   ``spawn`` method (forking a process that has initialised CUDA breaks it),
@@ -20,8 +22,7 @@ NCCL on the card (one rank per GPU), gloo on the CPU; gloo also runs
 several ranks on one card, staging the collectives' CUDA tensors through
 the host (``distributed.collectives``).  The TPU-slice meshes
 (``make_production_mesh``, ``make_train_mesh``, ``make_serve_mesh``) come
-with the dry run (ROADMAP item 15), ``make_engine_mesh`` with the
-mesh-sharded engine (item 10b).
+with the dry run (ROADMAP item 15).
 """
 from __future__ import annotations
 
@@ -86,6 +87,28 @@ def make_chain_mesh(num_ranks: int | None = None, *, axis: str = "chain"):
         raise ValueError(f"a chain mesh spans the {world} ranks of the process group, not {n}")
     device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
     return init_device_mesh(device_type, (n,), mesh_dim_names=(axis,))
+
+
+def make_engine_mesh(num_member_shards: int, num_slot_shards: int | None = None, *,
+                     axes: tuple[str, str] = ("member", "slot")):
+    """The 2-D ``(member, slot)`` ``DeviceMesh`` of the sharded
+    ``ServeEngine`` over the ranks of the default process group (rank r at
+    ``(r // s, r % s)``): the K ensemble axis over ``axes[0]``, the decode
+    slots over ``axes[1]``; by default every remaining rank goes on the
+    slot axis.  A ``DeviceMesh`` spans its group, so ``m * s`` must equal
+    the world size (the reference may take a prefix of its devices):
+    anything else raises ``ValueError``."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    world = dist.get_world_size()
+    m = int(num_member_shards)
+    s = int(num_slot_shards) if num_slot_shards is not None else world // max(m, 1)
+    if m < 1 or s < 1 or m * s != world:
+        raise ValueError(f"an engine mesh spans the {world} ranks of the process group, "
+                         f"not {num_member_shards} x {num_slot_shards}")
+    device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    return init_device_mesh(device_type, (m, s), mesh_dim_names=tuple(axes))
 
 
 def _child(fn, rank, world_size, init_file, backend, timeout_s, args, results):

@@ -1,7 +1,8 @@
 """Telemetry for the port: the metrics registry, the host-side tracer and
 the structured logger (copies of the reference package's pure-Python
-modules) and the run manifest, which records torch, CUDA and device
-fields."""
+modules), the run manifest, which records torch, CUDA and device fields,
+the JSONL metrics sink, and the trace and manifest validator
+(``python -m repro_torch.obs trace.json --require serve``)."""
 from repro_torch.obs import trace
 from repro_torch.obs.log import get_logger
 from repro_torch.obs.metrics import (
@@ -12,8 +13,9 @@ from repro_torch.obs.metrics import (
     default_registry,
     reset_default,
 )
-from repro_torch.obs.sinks import run_manifest
+from repro_torch.obs.sinks import JsonlSink, run_manifest
 from repro_torch.obs.trace import Tracer, disable as disable_tracing, enable as enable_tracing
+from repro_torch.obs.validate import validate_manifest, validate_trace
 
 __all__ = [
     "trace",
@@ -24,10 +26,13 @@ __all__ = [
     "MetricsRegistry",
     "default_registry",
     "reset_default",
+    "JsonlSink",
     "run_manifest",
     "Tracer",
     "enable_tracing",
     "disable_tracing",
+    "validate_manifest",
+    "validate_trace",
 ]
 
 

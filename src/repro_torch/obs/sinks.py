@@ -1,15 +1,33 @@
-"""The run manifest: the provenance block stamped into a trace export
-(``trace.json``'s ``otherData.manifest``), so an artifact can be matched
-to the code, framework and device that made it.  It records torch, CUDA
-and device fields."""
+"""Output sinks: the run manifest and a JSONL metrics stream.
+
+The manifest is the provenance block stamped into what a run emits — a
+trace export (``trace.json``'s ``otherData.manifest``) and the header of
+the JSONL metrics stream — so an artifact can be matched to the code,
+framework and device that made it.  It records torch, CUDA and device
+fields (``MANIFEST_KEYS``), where the reference records its JAX fields.
+"""
 from __future__ import annotations
 
+import json
 import platform
 import subprocess
 import sys
 import time
 
 import torch
+
+MANIFEST_KEYS = (
+    "git_sha",
+    "torch_version",
+    "cuda_version",
+    "backend",
+    "device_kind",
+    "device_count",
+    "python",
+    "platform",
+    "timestamp",
+)
+
 
 def _git_sha() -> str:
     try:
@@ -37,3 +55,35 @@ def run_manifest() -> dict:
         "platform": platform.platform(),
         "timestamp": time.strftime("%Y-%m-%dT%H:%M:%S%z"),
     }
+
+
+class JsonlSink:
+    """Append-one-JSON-object-per-line stream.  First line is the run
+    manifest; ``metrics()`` lines carry periodic registry snapshots and
+    ``summary()`` closes the run."""
+
+    def __init__(self, path):
+        self.path = path
+        self._wrote_header = False
+
+    def _write(self, obj: dict) -> None:
+        with open(self.path, "a") as f:
+            f.write(json.dumps(obj) + "\n")
+
+    def header(self, manifest: dict | None = None) -> None:
+        self._write({"kind": "manifest", **(manifest or run_manifest())})
+        self._wrote_header = True
+
+    def metrics(self, snapshot: dict, step: int | None = None) -> None:
+        if not self._wrote_header:
+            self.header()
+        rec = {"kind": "metrics"}
+        if step is not None:
+            rec["step"] = step
+        rec.update(snapshot)
+        self._write(rec)
+
+    def summary(self, snapshot: dict, **extra) -> None:
+        if not self._wrote_header:
+            self.header()
+        self._write({"kind": "summary", **extra, **snapshot})

@@ -34,18 +34,18 @@ def mixture_logprobs(logits, mode: str = "probs"):
 
 
 def fused_mixture_select(logits, generator=None, *, mode: str = "probs",
-                         sampling: SamplingParams = GREEDY):
+                         sampling: SamplingParams = GREEDY, gumbel=None):
     """One-kernel mixture + selection: (K, S, V) per-member logits ->
     (tokens (S,), mixture logprobs (S, V)), through the bma_select kernel,
     which reproduces ``mixture_logprobs`` + ``select_tokens``; the Gumbel
-    draw is taken outside the kernel from ``generator``."""
+    draw is taken outside the kernel from ``generator`` (or is ``gumbel``)."""
     from repro_torch.kernels import fused_bma_select
 
     if mode not in BMA_MODES:
         raise ValueError(f"mode must be one of {BMA_MODES}, got {mode!r}")
     return fused_bma_select(
         logits.contiguous(), generator, mode=mode,
-        temperature=float(sampling.temperature), top_k=int(sampling.top_k),
+        temperature=float(sampling.temperature), top_k=int(sampling.top_k), gumbel=gumbel,
     )
 
 

@@ -15,6 +15,12 @@ of the reference's: freelist + refcounted prefix sharing + worst-case
 growth reservations).  Block tables and context lengths stay host-resident
 numpy and are copied to the device every tick.
 
+Under a (member, slot) mesh a rank's pools hold only its block: the dense
+pool is built for the rank's K/W_m members and its ``slot_block`` of the
+slot ids, whose stripes it maps from the global ids (its slot
+bookkeeping stays global, so every rank acquires the same slots); the
+paged pool holds the rank's members over every page.
+
 Slots can be parked (lifted out of the live pool) and restored.  With
 ``compress_parked=True`` a parked slot's float leaves go through the int8
 block codec (``distributed.int8_codec``; about 4x smaller than f32, 2x
@@ -75,7 +81,13 @@ class CachePool:
     NH, dh); and
     ``caches["t"]`` is (K, num_slots).  ``member(k)`` is member k's view, a
     ``make_cache``-shaped tree whose ``t`` is (num_slots,); decode steps
-    write through it in place."""
+    write through it in place.
+
+    ``slot_block=(lo, hi)`` keeps stripes for slot ids lo..hi-1 only (a
+    rank's block under a mesh): the slot axis of ``caches`` is then hi - lo
+    long, stripe ``slot - lo``, while acquire/release run over all
+    ``num_slots`` ids.  Writes, parks and restores of a slot outside the
+    block hold no data on this rank."""
 
     def __init__(
         self,
@@ -87,6 +99,7 @@ class CachePool:
         max_seq: int,
         dtype=None,
         compress_parked: bool = False,
+        slot_block: tuple[int, int] | None = None,
         device="cuda",
     ):
         if num_members < 1 or num_slots < 1:
@@ -95,12 +108,17 @@ class CachePool:
         self.num_members = int(num_members)
         self.num_slots = int(num_slots)
         self.max_seq = int(max_seq)
-        proto = model.make_cache(cfg, self.num_slots, max_seq, dtype or cfg.compute_dtype, "meta")
+        self.slot_lo, self.slot_hi = (0, self.num_slots) if slot_block is None else map(
+            int, slot_block)
+        if not 0 <= self.slot_lo < self.slot_hi <= self.num_slots:
+            raise ValueError(f"slot_block {slot_block} outside [0, {self.num_slots})")
+        stripes = self.slot_hi - self.slot_lo
+        proto = model.make_cache(cfg, stripes, max_seq, dtype or cfg.compute_dtype, "meta")
         self.caches = tree_map(
             lambda s: torch.zeros((self.num_members,) + tuple(s.shape), dtype=s.dtype, device=device),
             proto,
         )
-        self.caches["t"] = torch.zeros((self.num_members, self.num_slots), dtype=torch.int32,
+        self.caches["t"] = torch.zeros((self.num_members, stripes), dtype=torch.int32,
                                        device=device)
         self._free = list(range(self.num_slots - 1, -1, -1))  # pop() -> slot 0 first
         self.acquired = 0
@@ -110,12 +128,21 @@ class CachePool:
     def member(self, k: int):
         return tree_map(lambda a: a[k], self.caches)
 
+    def stripe(self, slot: int) -> int | None:
+        """The stripe of slot id ``slot`` in this pool, or None when the
+        slot lies outside its ``slot_block``."""
+        return slot - self.slot_lo if self.slot_lo <= slot < self.slot_hi else None
+
     def write_slot(self, k: int, slot: int, slot_cache) -> None:
-        """Copy a batch-1 cache (from ``prefill``) into member k's ``slot``."""
+        """Copy a batch-1 cache (from ``prefill``) into member k's ``slot``
+        (nothing for a slot outside the block)."""
+        i = self.stripe(slot)
+        if i is None:
+            return
         view = self.member(k)
         for (dst, key, ax), (src, skey, _) in zip(_batch_leaves(view), _batch_leaves(slot_cache)):
-            dst[key].select(ax, slot).copy_(src[skey].select(ax, 0))
-        self.caches["t"][k, slot] = slot_cache["t"]
+            dst[key].select(ax, i).copy_(src[skey].select(ax, 0))
+        self.caches["t"][k, i] = slot_cache["t"]
 
     # -- slot bookkeeping ---------------------------------------------------
 
@@ -145,11 +172,15 @@ class CachePool:
 
     def park(self, slot: int, *, release: bool = True) -> ParkedCache:
         """Copy slot ``slot``'s cache out of the live pool, through the int8
-        codec with ``compress_parked``; ``release`` frees the slot."""
+        codec with ``compress_parked``; ``release`` frees the slot.  A slot
+        outside the block parks as no leaves and ``t`` None."""
+        i = self.stripe(slot)
         with obs_trace.get().span("pool.park", cat="pool", slot=slot):
-            leaves = [_pack(parent[key].select(ax + 1, slot).clone(), self.compress_parked)
-                      for parent, key, ax in _batch_leaves(self.caches)]
-            t = self.caches["t"][:, slot].clone()
+            leaves, t = [], None
+            if i is not None:
+                leaves = [_pack(parent[key].select(ax + 1, i).clone(), self.compress_parked)
+                          for parent, key, ax in _batch_leaves(self.caches)]
+                t = self.caches["t"][:, i].clone()
             if release:
                 self.release(slot)
             return ParkedCache(leaves, t, self.compress_parked)
@@ -159,10 +190,15 @@ class CachePool:
         one); returns the slot index."""
         if slot is None:
             slot = self.acquire()
+        i = self.stripe(slot)
+        if (i is None) != (parked.t is None):
+            raise ValueError(f"slot {slot}: a parked cache restores only into the slot block "
+                             "it was parked from")
         with obs_trace.get().span("pool.restore", cat="pool", slot=slot):
-            for (parent, key, ax), x in zip(_batch_leaves(self.caches), parked.leaves):
-                parent[key].select(ax + 1, slot).copy_(_unpack(x))
-            self.caches["t"][:, slot] = parked.t
+            if i is not None:
+                for (parent, key, ax), x in zip(_batch_leaves(self.caches), parked.leaves):
+                    parent[key].select(ax + 1, i).copy_(_unpack(x))
+                self.caches["t"][:, i] = parked.t
             return slot
 
     @property

@@ -27,8 +27,27 @@ feeding the same registry) is bound at construction and pumped once per
 tick before the decode; promotions rebind the registry's members and take
 effect at the next member read.
 
-Left out of this port so far (it raises): ``mesh`` (multi-device layout,
-ROADMAP item 10b).  ``compress_parked`` parks idle slots through the int8
+``mesh`` (a 2-D ``(member, slot)`` ``DeviceMesh``, ``launch.mesh.
+make_engine_mesh``) shards the engine over ``torch.distributed`` ranks,
+SPMD: every rank runs the same FCFS queue, slot acquisition, block tables
+and tick clock, which are deterministic on the host, so no collective is
+needed to agree on them.  By the layout rule (``distributed.sharding.
+leading_axes_specs``) a rank holds the K/W_m members of its member shard
+and, on the dense engine, the cache stripes of its slot block; a dim an
+axis does not divide replicates, and the paged engine's slot axis always
+replicates (pages are shared across slots by prefix sharing, so every rank
+of a member shard decodes every slot).  A tick decodes the local members
+over the local slots, all-gathers the (K_local, S_local, V) logits over
+the member axis, mixes and selects on the rank's slots (its rows of the
+unsharded engine's Gumbel draw), and all-gathers the tick's emit, feed,
+done and budget (and logp under ``record_logprobs``) over the slot axis,
+so every host sees all S slots.  An admit prefills through the local
+members and all-gathers the last position's logits over the member axis;
+only the slot's block writes its stripe.  Each collective runs where the
+rule grants its axis, on a one-rank mesh too, and is counted
+(``distributed.collective_counts``).
+
+``compress_parked`` parks idle slots through the int8
 codec.  The reference pins that decode is ONE compiled
 program; eager PyTorch has no counterpart of that pin (capturing the tick
 in a CUDA graph would be), so ``trace_counts`` here counts decode calls
@@ -43,10 +62,12 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from repro_torch.distributed import collectives
+from repro_torch.distributed.sharding import leading_axes_specs, local_block
 from repro_torch.models.common import tree_leaves, tree_map
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
-from repro_torch.serve.sampling import GREEDY, SamplingParams, select_tokens
+from repro_torch.serve.sampling import GREEDY, SamplingParams, gumbel_noise, select_tokens
 
 from .bma import BMA_MODES, fused_mixture_select, mixture_logprobs
 from .cache_pool import CachePool, PagedCachePool
@@ -112,7 +133,8 @@ class ServeEngine:
     """Continuous-batching BMA decode over a pooled slot axis.
 
     ``members``: a (K, ...)-stacked parameter dict or a
-    :class:`SnapshotRegistry`, already on ``device`` (nothing is moved).
+    :class:`SnapshotRegistry`, already on ``device`` (nothing is moved;
+    under a ``mesh`` the registry keeps the rank's block of each stack).
     ``refresher`` (optional, a :class:`ChainRefresher` or an overlapped
     :class:`~repro_torch.serve.engine.refresh.RefreshScheduler` feeding the
     same registry) is bound at construction and pumped EVERY decode tick;
@@ -140,6 +162,8 @@ class ServeEngine:
         record_logprobs: bool = False,
         seed: int = 0,
         mesh=None,
+        member_axis: str = "member",
+        slot_axis: str = "slot",
         paged: bool = False,
         block_size: int = 16,
         num_blocks: int | None = None,
@@ -149,8 +173,6 @@ class ServeEngine:
     ):
         if bma not in BMA_MODES:
             raise ValueError(f"bma must be one of {BMA_MODES}")
-        if mesh is not None:
-            raise NotImplementedError("mesh (multi-device serving) is not ported yet")
         self.device = torch.device(device)
         self.cfg, self.model = cfg, model
         self.registry = members if isinstance(members, SnapshotRegistry) else SnapshotRegistry(members)
@@ -170,19 +192,21 @@ class ServeEngine:
         self._seen_version = self.registry.version
         self.record_logprobs = bool(record_logprobs)
         self.paged = bool(paged)
+        self.mesh = mesh
+        self._layout(mesh, member_axis, slot_axis, int(num_slots))
         # the fused mixture+selection kernel is on by default where it is a
         # real kernel (CUDA); the CPU runs its plain version either way
         self._fused_select = (
             self.device.type == "cuda" if fused_select is None else bool(fused_select)
         )
-        pool_kw = dict(num_members=self.registry.num_members, num_slots=num_slots,
+        pool_kw = dict(num_members=self._k_local, num_slots=num_slots,
                        max_seq=max_seq, dtype=cache_dtype or cfg.compute_dtype,
                        compress_parked=compress_parked, device=self.device)
         if self.paged:
             self.pool = PagedCachePool(cfg, model, block_size=block_size, num_blocks=num_blocks,
                                        prefix_sharing=prefix_sharing, **pool_kw)
         else:
-            self.pool = CachePool(cfg, model, **pool_kw)
+            self.pool = CachePool(cfg, model, slot_block=self._slots, **pool_kw)
         S = self.pool.num_slots
         self._tokens = torch.full((S, 1), self.pad_id, dtype=torch.int32, device=self.device)
         self._done = torch.ones((S,), dtype=torch.bool, device=self.device)
@@ -191,11 +215,60 @@ class ServeEngine:
         self._gen = torch.Generator(device=self.device)
         self.trace_counts: Counter = Counter()
         self.decode_steps = 0
+        if mesh is not None:  # the rank's block of the members, from here on
+            self.registry.members = self._place_members(self.registry.members)
         self._placed_version = self.registry.version
         if refresher is not None and hasattr(refresher, "bind"):
             # pacing, placement and warm-up happen here, at construction —
             # never on a serving request
             refresher.bind(self)
+
+    def _layout(self, mesh, member_axis, slot_axis, num_slots) -> None:
+        """This rank's block under ``mesh`` by the layout rule: the member
+        axis (``_ax_member``, ``_k_local`` members) and, on
+        the dense engine, the slot axis (``_ax_slot``, slot ids
+        ``_slots``); None where the axis replicates.  ``host`` binds every
+        rank of the mesh on a gloo group (the refresher's agreement)."""
+        K = self.registry.num_members
+        self._ax_member = self._ax_slot = self.host = None
+        self._k_local, self._slots = K, (0, num_slots)
+        if mesh is None:
+            return
+        if not tuple(getattr(mesh, "mesh_dim_names", None) or ()):
+            raise ValueError(f"mesh must be a DeviceMesh with named axes, got {mesh!r}")
+        self._member_specs = leading_axes_specs(self.registry.members, (member_axis,), mesh)
+        m_ax, s_ax = leading_axes_specs(torch.empty((K, num_slots), device="meta"),
+                                        (member_axis, slot_axis), mesh)
+        if m_ax is not None:
+            self._ax_member = collectives.mesh_axis(mesh, m_ax)
+            self._k_local = K // self._ax_member.size
+        if s_ax is not None and not self.paged:
+            self._ax_slot = collectives.mesh_axis(mesh, s_ax)
+            n = num_slots // self._ax_slot.size
+            self._slots = (self._ax_slot.rank * n, (self._ax_slot.rank + 1) * n)
+        self.host = collectives.host_world(mesh)
+
+    def _gather_members(self, x):
+        """(K_local, ...) per-member rows -> (K, ...) in member order: one
+        all-gather over the member axis (none where it replicates)."""
+        if self._ax_member is None:
+            return x
+        return collectives.all_gather(x, self._ax_member).reshape((-1,) + tuple(x.shape[1:]))
+
+    def _gather_slots(self, emit, feed, done, budget, logp):
+        """The tick's slot state of this rank's slots -> all S slots: one
+        all-gather over the slot axis of the four int32 columns (and the
+        logp rows' bits under ``record_logprobs``); none where the axis
+        replicates."""
+        if self._ax_slot is None:
+            return emit, feed, done, budget, logp
+        cols = [torch.stack([emit, feed[:, 0], done.to(torch.int32), budget], dim=1)]
+        if self.record_logprobs:
+            cols.append(logp.contiguous().view(torch.int32))
+        packed = torch.cat(cols, dim=1)
+        g = collectives.all_gather(packed, self._ax_slot).reshape(-1, packed.shape[1])
+        logp = g[:, 4:].contiguous().view(torch.float32) if self.record_logprobs else None
+        return g[:, 0].clone(), g[:, 1:2].clone(), g[:, 2].bool(), g[:, 3].clone(), logp
 
     # -- members ---------------------------------------------------------------
 
@@ -212,11 +285,20 @@ class ServeEngine:
     def _place_members(self, tree):
         """A candidate member stack on the engine's device: leaves already
         there pass through; a stack from another device (a sampler on a
-        spare card) is copied, queued on the current stream."""
+        spare card) is copied, queued on the current stream.  Under a mesh
+        a full (K, ...) candidate is cut to the rank's block (a copy, so
+        the full stack is not kept alive); a local one passes through."""
+        cut = (self._k_local != self.registry.num_members
+               and tree_leaves(tree)[0].shape[0] == self.registry.num_members)
+        if cut:
+            tree = local_block(tree, self._member_specs, self.mesh)
+
         def place(a):
             same = a.device.type == self.device.type and (
                 self.device.index is None or a.device.index == self.device.index)
-            return a if same else a.to(self.device, non_blocking=True)
+            if not same:
+                return a.to(self.device, non_blocking=True)
+            return a.clone() if cut else a
 
         return tree_map(place, tree)
 
@@ -251,11 +333,19 @@ class ServeEngine:
 
     def _mix_select(self, logits, gen):
         """(K, S, V) member logits -> (tokens (S,), mixture logprobs (S, V)),
-        fused (one kernel) or unfused — same numerics."""
+        fused (one kernel) or unfused — same numerics.  A rank that selects
+        a block of the slots takes its rows of the unsharded engine's
+        (S, V) Gumbel draw, so its tokens do not depend on the split."""
+        gumbel = None
+        if self._ax_slot is not None and self.sampling.temperature > 0.0:
+            lo, hi = self._slots
+            gumbel = gumbel_noise((self.pool.num_slots, logits.shape[-1]), gen,
+                                  logits.device)[lo:hi]
         if self._fused_select:
-            return fused_mixture_select(logits, gen, mode=self.bma, sampling=self.sampling)
+            return fused_mixture_select(logits, gen, mode=self.bma, sampling=self.sampling,
+                                        gumbel=gumbel)
         logp = mixture_logprobs(logits, self.bma)
-        return select_tokens(logp, gen, self.sampling), logp
+        return select_tokens(logp, gen, self.sampling, gumbel=gumbel), logp
 
     def _select_tail(self, tok, logp, done, budget):
         """Shared emit/feed/done bookkeeping after token selection."""
@@ -267,10 +357,12 @@ class ServeEngine:
         return emit, feed, next_done, budget - 1, logp
 
     def _decode(self, gen):
-        """One tick over every slot: dense or paged per-member decode, then
-        mixture + selection."""
+        """One tick over every slot: dense or paged per-member decode of the
+        rank's members and slots, then mixture + selection (the member and
+        slot all-gathers under a mesh)."""
         self.trace_counts["decode"] += 1
-        K = self.registry.num_members
+        K = self._k_local
+        lo, hi = self._slots
         rows = []
         if self.paged:
             tables = torch.tensor(self.pool.tables, dtype=torch.int32, device=self.device)
@@ -285,22 +377,25 @@ class ServeEngine:
                 )
                 rows.append(logits[:, 0])
         else:
+            tokens = self._tokens[lo:hi]
             for k in range(K):
                 view = self.pool.member(k)
-                logits, new = self.model.decode_step(self.cfg, self._member(k), view, self._tokens)
+                logits, new = self.model.decode_step(self.cfg, self._member(k), view, tokens)
                 self.pool.caches["t"][k].copy_(new["t"])
                 rows.append(logits[:, 0])
-        tok, logp = self._mix_select(torch.stack(rows), gen)  # (S,), (S, V)
-        return self._select_tail(tok, logp, self._done, self._budget)
+        logits = self._gather_members(torch.stack(rows))  # (K, S_local, V)
+        tok, logp = self._mix_select(logits, gen)  # (S_local,), (S_local, V)
+        return self._gather_slots(*self._select_tail(tok, logp, self._done[lo:hi],
+                                                     self._budget[lo:hi]))
 
     def _admit(self, req: Request, slot: int, table_row=None):
-        """Prefill the prompt through every member into ``slot`` (dense
-        stripe or the table row's pages); returns (first token, slot done,
-        mixture logp (V,))."""
+        """Prefill the prompt through every (local) member into ``slot``
+        (dense stripe or the table row's pages); returns (first token, slot
+        done, mixture logp (V,)), the same on every rank of a mesh."""
         self.trace_counts[f"admit_len{req.prompt.size}"] += 1
         prompt = torch.tensor(req.prompt, dtype=torch.int32, device=self.device)[None]
         rows = []
-        for k in range(self.registry.num_members):
+        for k in range(self._k_local):
             logits, slot_cache = self.model.prefill(
                 self.cfg, self._member(k), {"tokens": prompt}, self.max_seq, self.cache_dtype
             )
@@ -312,7 +407,7 @@ class ServeEngine:
             else:
                 self.pool.write_slot(k, slot, slot_cache)
             rows.append(logits[0, -1])
-        logp = mixture_logprobs(torch.stack(rows), self.bma)  # (V,)
+        logp = mixture_logprobs(self._gather_members(torch.stack(rows)), self.bma)  # (V,)
         tok = select_tokens(logp, self._generator(1, req.rid), self.sampling)  # 0-d
         slot_done = bool(self._eos_hits(tok)) or req.max_new <= 1
         self._tokens[slot, 0] = self.pad_id if slot_done else tok

@@ -32,7 +32,20 @@ need no ordering between promotions: they only have to agree at the flip.
 4. **A spare device.**  With more than one card, ``device="auto"`` moves
    the background run's carry to the last card, so the sampler runs off
    the serving card entirely; on one card it shares the card through the
-   side stream.
+   side stream.  Under an engine mesh the spare card is the last local
+   card that no rank of the mesh serves on, else none.
+
+Under a mesh each rank binds its own scheduler over the full K-chain
+carry (the reference's one scheduler, replicated) and the engine keeps
+the rank's block of each promoted stack.  Readiness is per rank: an
+event's ``query`` answers differently on two ranks, which could then
+promote at different ticks and serve different members.  So a pump with
+something to decide (a staged candidate, or credit for a micro-chunk)
+agrees on (verdict ready, verdict passing, side stream idle) by ONE
+MIN all-reduce of three int32 flags over every rank, on a gloo group
+(host values, no wait on a device stream), and launches at most one
+micro-chunk; a forced flip agrees on the verdict by one more.  Every rank
+then flips, defers and launches at the same ticks.
 
 The port's carry is written in place, where the reference's is immutable,
 so the stream copies the chain stack at every proposal boundary; the
@@ -53,6 +66,7 @@ import weakref
 
 import torch
 
+from repro_torch.distributed import collectives
 from repro_torch.models.common import tree_leaves
 from repro_torch.obs import trace as obs_trace
 from repro_torch.run import ChainExecutor
@@ -84,10 +98,20 @@ def _move(tree, device):
     return tree
 
 
+def _spare_device(used, count: int) -> int | None:
+    """The last of ``count`` local CUDA device indices not in ``used``, or
+    None when every one is used."""
+    used = set(used)
+    spare = [i for i in range(count) if i not in used]
+    return spare[-1] if spare else None
+
+
 def _pick_device(engine, request):
     """Placement policy for the background run.  ``request``: a device,
-    ``None`` (leave the carry where it is), or ``"auto"``: with more than
-    one CUDA device, the last one; otherwise None."""
+    ``None`` (leave the carry where it is), or ``"auto"``: under an engine
+    mesh, the last local CUDA device that no rank of the mesh serves on
+    (the ranks' devices gathered on the host), else None; without a mesh,
+    with more than one CUDA device, the last one; otherwise None."""
     if request != "auto":
         return None if request is None else torch.device(request)
     dev = getattr(engine, "device", None)
@@ -95,6 +119,11 @@ def _pick_device(engine, request):
     if kind != "cuda":
         return None
     n = torch.cuda.device_count()
+    host = getattr(engine, "host", None)
+    if host is not None:
+        mine = torch.tensor([torch.cuda.current_device() if dev.index is None else dev.index])
+        spare = _spare_device(collectives.all_gather(mine, host).flatten().tolist(), n)
+        return None if spare is None else torch.device("cuda", spare)
     return torch.device("cuda", n - 1) if n > 1 else None
 
 
@@ -149,6 +178,7 @@ class RefreshScheduler:
         # instants are reconstructed from it at micro-chunk launch
         self.sync_every = int(sync_every) if sync_every else None
         self._engine = None  # a weak reference: the engine holds the scheduler
+        self._host = None  # every rank of the engine's mesh (agreement), or None
         self._side = None  # the side stream; None on the CPU
         self._stream = None
         self._credit = 0.0
@@ -179,6 +209,7 @@ class RefreshScheduler:
         if self._stream is not None:
             raise RuntimeError("bind() must precede the first pump/refresh")
         self._engine = weakref.ref(engine)
+        self._host = getattr(engine, "host", None)
         cadence = max(int(getattr(engine, "refresh_every", 0)), 1)
         if not self._explicit_micro:
             self.micro_steps = _micro_split(self.chunk_steps, cadence)
@@ -276,12 +307,34 @@ class RefreshScheduler:
         micro-chunk, so a slow sampler cannot pile up work."""
         return self._probe is None or self._probe.query()
 
-    def _maybe_flip(self, *, force: bool) -> bool:
+    def _agree(self, credit: float):
+        """Under a mesh, with a staged candidate or ``credit`` for a
+        micro-chunk: (verdict ready, verdict passing, side stream idle) as
+        every rank agrees, by one MIN all-reduce; otherwise None."""
+        if self._host is None:
+            return None
+        if self.registry.staged is None and (self.exhausted or credit < 1.0):
+            return None
+        passes = self.registry.staged_passes()
+        flags = torch.tensor([passes is not None, bool(passes), self._sampler_idle()],
+                             dtype=torch.int32)
+        collectives.all_reduce_min(flags, self._host)
+        return tuple(bool(f) for f in flags.tolist())
+
+    def _agree_passing(self) -> bool:
+        """The staged verdict every rank of the mesh agrees on, each rank
+        waiting for its own first (a forced flip)."""
+        flag = torch.tensor([int(bool(self.registry.staged_passes(wait=True)))],
+                            dtype=torch.int32)
+        return bool(collectives.all_reduce_min(flag, self._host).item())
+
+    def _maybe_flip(self, *, force: bool, agreed=None) -> bool:
         """Resolve the staged candidate if its verdict is ready (or we are
-        forced to wait for it); returns True iff promoted."""
+        forced to wait for it); returns True iff promoted.  ``agreed``: the
+        mesh's (ready, passing, idle) flags from ``_agree``."""
         if self.registry.staged is None:
             return False
-        ready = self.registry.staged_ready()
+        ready = self.registry.staged_ready() if agreed is None else agreed[0]
         may_defer = self._max_flip_deferrals is None or self._deferrals < self._max_flip_deferrals
         if not ready and not force and may_defer:
             self._deferrals += 1
@@ -294,7 +347,10 @@ class RefreshScheduler:
         # waits on the host only when not ready (the forced flip)
         with obs_trace.get().span("refresh.flip", cat="refresh",
                                   forced=force, verdict_ready=ready):
-            promoted = self.registry.flip_staged(place=self._place)
+            passing = None
+            if self._host is not None:  # every rank promotes or rejects alike
+                passing = agreed[1] if agreed is not None and ready else self._agree_passing()
+            promoted = self.registry.flip_staged(place=self._place, passing=passing)
         if not ready:
             self.stall_wall_s += time.perf_counter() - t0
             self.decode_steps_stalled += 1
@@ -316,18 +372,25 @@ class RefreshScheduler:
         promotion flipped in this call."""
         del step  # pacing is credit-based, robust to per-run step resets
         t0 = time.perf_counter()
-        promoted = self._maybe_flip(force=False)
+        credit = self._credit
         if not self.exhausted:
             micros_per_chunk = self.chunk_steps // self.micro_steps
-            self._credit = min(self._credit + self._rate, 2.0 * micros_per_chunk)
-            if self._credit >= 1.0 and not self._sampler_idle():
+            credit = min(credit + self._rate, 2.0 * micros_per_chunk)
+        agreed = self._agree(credit)
+        promoted = self._maybe_flip(force=False, agreed=agreed)
+        if not self.exhausted:
+            self._credit = credit
+            idle = self._sampler_idle() if agreed is None else agreed[2]
+            if self._credit >= 1.0 and not idle:
                 self.backpressure_ticks += 1
                 obs_trace.get().instant(
                     "refresh.backpressure", cat="refresh", credit=self._credit
                 )
-            while self._credit >= 1.0 and not self.exhausted and self._sampler_idle():
+            while self._credit >= 1.0 and not self.exhausted and idle:
                 self._credit -= 1.0
                 self._dispatch_micro()
+                # under a mesh the agreed flag covers one launch
+                idle = agreed is None and self._sampler_idle()
         if self.exhausted and self.registry.staged is not None:
             # nothing further will be staged — don't strand the last candidate
             promoted = self._maybe_flip(force=True) or promoted

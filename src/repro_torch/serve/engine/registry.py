@@ -153,12 +153,28 @@ class SnapshotRegistry:
         ready = self._staged[2]
         return ready is None or ready.query()
 
-    def flip_staged(self, place=None) -> bool:
+    def staged_passes(self, wait: bool = False) -> bool | None:
+        """The staged candidate's verdict (True: it passes the spread gate)
+        once its event has completed, else None; ``wait`` waits for the
+        event first.  None with nothing staged."""
+        if self._staged is None:
+            return None
+        _, health, ready = self._staged
+        if ready is not None:
+            if wait:
+                ready.synchronize()
+            elif not ready.query():
+                return None
+        return not self._fetch_health(health)["collapsed"]
+
+    def flip_staged(self, place=None, passing: bool | None = None) -> bool:
         """Read the staged verdict (blocking on its event only if it has not
         completed) and promote or reject.  Promotion rebinds ``members``:
         the current stream first waits on the candidate's event and every
         leaf is marked as used by it.  ``place`` (optional) maps the
-        candidate into its serving placement at promotion time."""
+        candidate into its serving placement at promotion time.
+        ``passing`` (optional) overrides the verdict: the one the ranks of a
+        mesh agreed on."""
         if self._staged is None:
             return False
         candidate, health_dev, ready = self._staged
@@ -166,6 +182,8 @@ class SnapshotRegistry:
         if ready is not None:
             ready.synchronize()  # returns at once when staged_ready()
         health = self._fetch_health(health_dev)
+        if passing is not None:
+            health["collapsed"] = not passing
         self.last_health = health
         if health["collapsed"]:
             self.rejected += 1

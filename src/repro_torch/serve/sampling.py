@@ -42,21 +42,23 @@ def _top_k_mask(logits, k: int):
 
 
 def select_tokens(logits, generator: torch.Generator | None = None,
-                  sampling: SamplingParams = GREEDY):
+                  sampling: SamplingParams = GREEDY, gumbel=None):
     """``logits (..., V)`` -> int32 tokens ``(...)``.
 
     Greedy (``temperature == 0``) is exact argmax (first maximum).
     Otherwise logits are scaled by ``1/temperature``, optionally top-k
     masked, and sampled as argmax(scaled + Gumbel) with one (..., V) draw
-    from ``generator``."""
+    from ``generator``, or with the draw ``gumbel`` given (the rows of a
+    larger draw, for a rank that selects some of the slots)."""
     if sampling.temperature <= 0.0:
         return torch.argmax(logits, dim=-1).to(torch.int32)
-    if generator is None:
+    if generator is None and gumbel is None:
         raise ValueError("temperature > 0 sampling needs a generator")
     scaled = logits.float() / float(sampling.temperature)
     if sampling.top_k:
         scaled = _top_k_mask(scaled, sampling.top_k)
-    gumbel = gumbel_noise(scaled.shape, generator, scaled.device)
+    if gumbel is None:
+        gumbel = gumbel_noise(scaled.shape, generator, scaled.device)
     return torch.argmax(scaled + gumbel, dim=-1).to(torch.int32)
 
 

@@ -1,6 +1,8 @@
-"""The port stands alone: ``repro_torch``, ``chip_smoke.py`` and the rank
-functions of the multi-rank tests (``tests/torch_shard_workers.py``) import
-neither jax nor anything of the reference package ``repro``."""
+"""The port stands alone: ``repro_torch`` (its trace validator and ``python
+-m repro_torch.obs`` too), ``chip_smoke.py`` and the rank functions of the
+multi-rank tests (``tests/torch_shard_workers.py``,
+``tests/torch_serve_workers.py``) import neither jax nor anything of the
+reference package ``repro``."""
 from __future__ import annotations
 
 import pathlib
@@ -32,7 +34,9 @@ def test_importing_every_module_loads_no_jax():
             "repro_torch.configs.gemma3_27b", "repro_torch.configs.olmoe_1b_7b",
             "repro_torch.configs.grok_1_314b", "repro_torch.models.encdec",
             "repro_torch.configs.xlstm_350m", "repro_torch.configs.qwen2_vl_7b",
-            "repro_torch.configs.whisper_base", "repro_torch.launch.specs"} <= set(mods)
+            "repro_torch.configs.whisper_base", "repro_torch.launch.specs",
+            "repro_torch.obs.sinks", "repro_torch.obs.validate",
+            "repro_torch.obs.__main__"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -56,7 +60,8 @@ def test_sources_name_no_jax_or_reference_import():
     # the rank functions of the multi-rank tests run in spawned processes
     # that must stay as light as the port
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                          ROOT / "tests" / "torch_shard_workers.py"]
+                                          ROOT / "tests" / "torch_shard_workers.py",
+                                          ROOT / "tests" / "torch_serve_workers.py"]
     hits = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
             for f in files for m in _FORBIDDEN.finditer(f.read_text())]
     assert not hits, hits

@@ -132,7 +132,9 @@ def test_trace_counts_and_truncation(setup):
 def test_unported_options_raise(setup):
     *_, cfg, model, members = setup
     kw = dict(num_slots=2, max_seq=MAX_SEQ, device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
+    # the mesh is ported (tests/test_torch_sharded_serve.py): what is left to
+    # refuse is a mesh that is not a DeviceMesh with named axes
+    with pytest.raises(ValueError, match="mesh must be a DeviceMesh"):
         ServeEngine(cfg, model, members, mesh=object(), **kw)
     # the refresher is ported (tests/test_torch_refresh.py); what is left to
     # refuse is one that feeds another registry, as the reference refuses it
