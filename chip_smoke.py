@@ -25,7 +25,10 @@ It imports torch, numpy and repro_torch only, and:
    capacity), 200 and V, and on a flat row (``[bma]``, ``[bma256k]``), and
    the RG-LRU scan
    bit for bit up to a 32k-token prompt, with an R that is not made of
-   16-byte pieces, and with f16 and mixed-dtype inputs (``[rglru]``); the
+   16-byte pieces, and with f16 and mixed-dtype inputs, and its backward
+   kernel bit for bit (da, dx, dh0) at the training path's (4, 64, 2560),
+   at (1, 4096, 2560) and at R 77, with and without h0, directly and
+   through ``torch.autograd.grad`` (``[rglru]``); the
    select and scan rows also by device time per call; and the text
    families' shapes: flash at h2o-danube's d 80, at gemma3's 1536-token
    prompt under its window of 1024, at grok's G 6 with softcap 30, at
@@ -57,7 +60,13 @@ It imports torch, numpy and repro_torch only, and:
    fused scale-adapted EC-SGHMC with a known frozen M^-1 on a Gaussian
    target against the exact oracle, and trains the same K=4 qwen3-0.6b
    chains for 8 scale-adapted EC-SGHMC steps across the burn-in freeze,
-   then profiles two more;
+   then profiles two more; then trains K=2 chains of recurrentgemma-2b
+   at its published widths cut to one 3-layer (rglru, rglru, attn) period
+   for 8 fused EC-SGHMC steps, through the scan kernel and its backward
+   (exact launches, finite nll, peak memory, the step's model-FLOPs share
+   of ``repro_torch.roofline.HW``'s bf16 peak), holds SMOKE hybrid
+   training on the card against the CPU and runs ``launch.train.main
+   --arch recurrentgemma-2b --smoke`` (``[train-hybrid]``);
 8. serves the K=4-member ensemble of recurrentgemma-2b at full width
    (``[slice-hybrid]``) through ``ServeEngine.run`` on the dense engine
    (paged is refused for RG-LRU layers), greedily, checks the launch counts of the scan, flash and bma_select kernels,
@@ -128,8 +137,12 @@ It imports torch, numpy and repro_torch only, and:
    version at every tick; ``[serve-launch]`` and ``[refresh-ec]`` export
    their traces, which ``repro_torch.obs.validate`` checks (profiles
    ``serve`` and ``serve_ec``);
-15. prints one JSON line of the six kernels (the serving kernels with their
-   launches on each serving path), the card line, and the result line.
+15. prints one JSON line of the seven kernels (the six ported Pallas kernels
+   and the scan's backward, with each kernel's launches on each of its
+   paths), the card line, and the result line.
+
+Every bound is the larger of bytes over the HBM rate and operations over
+the peak rate of their type, both from ``repro_torch.roofline.HW``.
 
 TF32 is off for matmuls and cuDNN (``allow_tf32 = False``), so f32
 products are full f32.  The caching allocator runs with expandable
@@ -157,14 +170,14 @@ import numpy as np
 ROOT = pathlib.Path(__file__).resolve().parent
 OUT = ROOT / "build" / "chip_smoke"
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
-BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor rate
-F32_FLOPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
 
 FLASH_ATOL = 2e-2  # bf16 output: a few bf16 ulps at |o| ~ 1
 PAGED_ATOL = 2e-2
 BMA_LOGP_ATOL = 1e-4  # f32 logsumexp over up to 256000 terms in another order
 SLICE_FIRST_LOGP_ATOL = 1e-3  # paged vs dense engine, first token's mixture row
+# [slice]'s dense run: the prefill's token and one decode tick, all that
+# its check reads (a whole 32-token run cost ~20-30 s of the time limit)
+SLICE_DENSE_NEW = 2
 SMOKE_LOGP_ATOL = 1e-4  # whole engine, card vs CPU, f32 SMOKE config
 # The SMOKE qwen2-vl engine (no qk-norm, theta 1e6) is 1.5e-4 from an f64 run
 # on the CPU (scripts/torch_f64_distance.py; qwen3 4.8e-7, h2o-danube 2.7e-5):
@@ -203,8 +216,20 @@ def time_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
-def bound(nbytes: float, flops: float, flops_rate: float) -> tuple[float, str]:
-    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / flops_rate * 1e3
+def card_peaks() -> dict:
+    """The card's peak rates: ``repro_torch.roofline.analytic.HW``, the one
+    table of the port's bounds (H100 SXM: HBM 3.35 TB/s, dense bf16 989
+    TFLOP/s, f32 outside the tensor cores 67 TFLOP/s)."""
+    from repro_torch.roofline.analytic import HW
+
+    return HW
+
+
+def bound(nbytes: float, flops: float, rate: str) -> tuple[float, str]:
+    """The least time in ms for ``nbytes`` of device memory traffic and
+    ``flops`` operations at the ``rate`` ("bf16" or "f32") peak."""
+    hw = card_peaks()
+    tb, tf = nbytes / hw["hbm_bw"] * 1e3, flops / hw[f"peak_flops_{rate}"] * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
@@ -401,7 +426,7 @@ def phase_flash(torch, ops, ref, F, *, B=1, Hq=16, Hkv=8, d=128, cases=FLASH_CAS
         pairs = int(band.sum().item())  # (query, key) pairs inside the causal band
         nbytes = 2 * (2 * B * Hq * S * d + 2 * B * Hkv * S * d)
         flops = 4 * B * Hq * d * pairs  # QK^T and PV over the band
-        b_ms, b_by = bound(nbytes, flops, BF16_FLOPS_PER_S)
+        b_ms, b_by = bound(nbytes, flops, "bf16")
         log(f"[{label}] B={B} Hq={Hq} Hkv={Hkv} S={S} d={d} window={window} softcap={softcap} "
             f"bf16: max_abs_err={err:.3e} (atol {FLASH_ATOL}) kernel {ms:.4f} ms (device "
             f"{fmt_ms(dev)}), plain {plain:.4f} ms, sdpa {fmt_ms(lib)} (device {fmt_ms(lib_dev)}), "
@@ -475,7 +500,7 @@ def phase_paged(torch, ops, ref, *, Hkv=8, G=2, softcap=None, cases=PAGED_CASES,
         isz = q.element_size()
         nbytes = 2 * keys * Hkv * d * isz + 2 * isz * B * Hkv * G * d + 4 * B * M + 4 * B
         flops = 4 * keys * Hkv * G * d
-        b_ms, b_by = bound(nbytes, flops, BF16_FLOPS_PER_S if isz == 2 else F32_FLOPS_PER_S)
+        b_ms, b_by = bound(nbytes, flops, "bf16" if isz == 2 else "f32")
         log(f"[paged] {label}: slots={B} Hkv={Hkv} G={G} d={d} bs={bs} ctx={ctx_np.tolist()} "
             f"window={window} softcap={softcap} {dtype}: max_abs_err={err:.3e} (atol {PAGED_ATOL}) kernel "
             f"{ms:.4f} ms (device {fmt_ms(dev)}), plain {plain:.4f} ms, bound {b_ms:.5f} ms "
@@ -567,7 +592,7 @@ def phase_bma(torch, ops, ref, *, V=151936, K=4, label="bma", seed=13, cases=BMA
             plain = time_ms(torch, lambda: ref.bma_select(lg, gum, **kw))
             nbytes = 4 * (K * S * V + S * V + (S * V if T > 0 else 0) + S)
             flops = 6 * K * S * V
-            b_ms, b_by = bound(nbytes, flops, F32_FLOPS_PER_S)
+            b_ms, b_by = bound(nbytes, flops, "f32")
             kept_s = "" if kept is None else f" kept per slot {kept.min().item()}-{kept.max().item()}"
             log(f"[{label}] K={K} S={S} V={V} mode={mode} {case} (T={T} top_k={top_k}):{kept_s} "
                 f"max_abs_err={err:.3e} (atol {BMA_LOGP_ATOL}) token mismatches within "
@@ -599,8 +624,8 @@ def phase_rglru(torch, ops, ref):
     (max ULP 0), at every RGLRU_CASES shape; kernel time (median of 20),
     device time per launch, and the plain version's time (median of 20, of
     3 at S >= 4096) beside the byte bound.  f16 and mixed-dtype inputs
-    through ``ops.rglru_scan`` (cast to f32) are bitwise too.  A CUDA call
-    whose inputs require grad must raise."""
+    through ``ops.rglru_scan`` (cast to f32) are bitwise too.  Then the
+    backward kernel's rows (``phase_rglru_bwd``)."""
     import repro_torch.kernels.rglru as rg
 
     g = torch.Generator(device="cuda").manual_seed(16)
@@ -626,7 +651,7 @@ def phase_rglru(torch, ops, ref):
         plain = time_ms(torch, lambda: ref.rglru_scan(a, x, h0), reps=3 if long else 20,
                         warmup=1 if long else 3)
         nbytes = (2 * a.element_size() + 4) * B * S * R + (4 * B * R if with_h0 else 0)
-        b_ms, b_by = bound(nbytes, 2 * B * S * R, F32_FLOPS_PER_S)
+        b_ms, b_by = bound(nbytes, 2 * B * S * R, "f32")
         log(f"[rglru] {label} (B, S, R)={(B, S, R)} {dtype}{' + h0' if with_h0 else ''}: bitwise "
             f"equal {same}, max_abs_err={err:.3e}, max ULP {ulp:.0f}; kernel {ms:.4f} ms (device "
             f"{fmt_ms(dev)}), plain {plain:.4f} ms{' (median of 3)' if long else ''}, bound "
@@ -643,14 +668,75 @@ def phase_rglru(torch, ops, ref):
             raise AssertionError(f"rglru a {da}, x {dx}: not bitwise equal to the plain version")
     log("[rglru] (1, 64, 2560) with a/x f16/f16, f32/bf16, f16/f32 through ops.rglru_scan: "
         "bitwise equal to the plain version")
-    a = torch.rand((1, 8, 16), device="cuda", requires_grad=True)
-    try:
-        ops.rglru_scan(a, torch.rand((1, 8, 16), device="cuda"))
-    except NotImplementedError:
-        log("[rglru] a CUDA call whose inputs require grad raises NotImplementedError")
-    else:
-        raise AssertionError("rglru_scan on CUDA with requires_grad did not raise")
+    rows += phase_rglru_bwd(torch, ops, ref, g)
     torch.cuda.empty_cache()
+    return rows
+
+
+# The backward's checks: (label, (B, S, R)), each with and without h0: the
+# training path's shape ([train-hybrid]: 4 sequences x 64 tokens a chain),
+# a 4k-token sequence, and an R of 77 that is not made of 16-byte pieces
+# (the plain-load staging path).
+RGLRU_BWD_CASES = [("train path", (4, 64, 2560)), ("4k", (1, 4096, 2560)),
+                   ("odd R", (2, 300, 77))]
+
+
+def bits_equal(torch, got, want) -> bool:
+    """Bit for bit, the sign of zero included."""
+    return got.dtype == want.dtype and torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def phase_rglru_bwd(torch, ops, ref, g):
+    """The backward kernel against ref.rglru_scan_bwd on the card, bit for
+    bit in (da, dx, dh0), at every RGLRU_BWD_CASES shape with and without
+    h0; kernel time (median of 20), device time per launch, the plain
+    version's time (median of 20, of 3 at S 4096) beside the byte bound; and
+    ``torch.autograd.grad`` through ``ops.rglru_scan`` bit for bit the plain
+    backward's result."""
+    import repro_torch.kernels.rglru as rg
+
+    rows = []
+    for label, (B, S, R) in RGLRU_BWD_CASES:
+        for with_h0 in (False, True):
+            a = 0.9 + 0.099 * torch.rand((B, S, R), generator=g, device="cuda")
+            x = torch.randn((B, S, R), generator=g, device="cuda")
+            dh = torch.randn((B, S, R), generator=g, device="cuda")
+            h0 = torch.randn((B, R), generator=g, device="cuda") if with_h0 else None
+            h = ref.rglru_scan(a, x, h0)
+            want = ref.rglru_scan_bwd(a, h, dh, h0)
+            da, dx = torch.empty_like(a), torch.empty_like(a)
+            dh0 = torch.empty_like(h0) if with_h0 else None
+            kernel = lambda: rg.launch_bwd(a, h, dh, h0, da, dx, dh0)  # noqa: E731
+            kernel()
+            torch.cuda.synchronize()
+            got = (da, dx, dh0)
+            same = all(bits_equal(torch, u, w) for u, w in zip(got, want) if w is not None)
+            err = max((u - w).abs().max().item() for u, w in zip(got, want) if w is not None)
+            leaves = [t.clone().requires_grad_(True) for t in (a, x, h0) if t is not None]
+            grads = torch.autograd.grad(ops.rglru_scan(*leaves), leaves, dh)
+            through = all(bits_equal(torch, u, w) for u, w in
+                          zip(grads, [w for w in want if w is not None]))
+            if not (same and through and all(torch.isfinite(w).all() for w in want
+                                              if w is not None)):
+                raise AssertionError(f"rglru backward {label} {(B, S, R)} h0={with_h0}: kernel "
+                                     f"bitwise {same}, through autograd bitwise {through}, max "
+                                     f"abs err {err}")
+            ms, dev = time_ms(torch, kernel), device_ms(torch, kernel)
+            long = S >= 4096
+            plain = time_ms(torch, lambda: ref.rglru_scan_bwd(a, h, dh, h0),
+                            reps=3 if long else 20, warmup=1 if long else 3)
+            # a, dh, h_0..h_{S-2} read, da and dx written; h0 read, dh0 written
+            nbytes = 4 * B * R * (4 * S + S - 1) + (8 * B * R if with_h0 else 0)
+            b_ms, b_by = bound(nbytes, 3 * B * S * R, "f32")
+            log(f"[rglru] backward {label} (B, S, R)={(B, S, R)} f32{' + h0' if with_h0 else ''}: "
+                f"bitwise equal {same} (through autograd {through}), max_abs_err={err:.3e}; kernel "
+                f"{ms:.4f} ms (device {fmt_ms(dev)}), plain {plain:.4f} ms"
+                f"{' (median of 3)' if long else ''}, bound {b_ms:.5f} ms ({b_by}, "
+                f"{nbytes / 1e6:.2f} MB); library: none")
+            rows.append(dict(label=f"backward {label}", shape=(B, S, R), dtype="float32",
+                             h0=with_h0, err=err, ms=ms, device_ms=dev, plain_ms=plain,
+                             library_ms=None, bound_ms=b_ms, bound_by=b_by))
+            del a, x, dh, h0, h, want, da, dx, dh0, got, leaves, grads
     return rows
 
 
@@ -737,7 +823,7 @@ def serve_slice(torch, card, arch, *, paged, kernels, tag, seed0=0, layers=None,
                             max_new=max_new, seed=0)
     kw = dict(num_slots=8, max_seq=128 + max_new, record_logprobs=True, device="cuda")
 
-    def serve(paged, sampling, label):
+    def serve(paged, sampling, label, trace=trace):
         eng = ServeEngine(cfg, model, members, paged=paged, sampling=sampling, **kw)
         torch.cuda.synchronize()
         rep = eng.run(trace)
@@ -778,20 +864,28 @@ def serve_slice(torch, card, arch, *, paged, kernels, tag, seed0=0, layers=None,
 
 def phase_slice(torch, card):
     """qwen3-0.6b at full width, K = 4, on the paged engine; the dense
-    engine's first token against the paged one's, and a profiled run."""
+    engine's first token against the paged one's, and a profiled run.  The
+    dense run serves the trace's prompts for SLICE_DENSE_NEW tokens: the
+    check reads the first token and the first decode tick."""
+    import dataclasses
+
     from repro_torch.serve.sampling import SamplingParams
 
     sl = serve_slice(torch, card, "qwen3-0.6b", paged=True, kernels=SERVING_KERNELS, tag="slice")
     rep, counts = sl["greedy"], {n: sl["counts"][n] for n in SERVING_KERNELS}
-    dense, _ = sl["serve"](False, SamplingParams(), "dense greedy")
+    short = [dataclasses.replace(r, max_new=SLICE_DENSE_NEW) for r in sl["trace"]]
+    dense, _ = sl["serve"](False, SamplingParams(), f"dense greedy, {SLICE_DENSE_NEW} tokens",
+                           trace=short)
     first = max(float(np.abs(a.logprobs[0] - b.logprobs[0]).max())
                 for a, b in zip(rep.results, dense.results))
     second = max(float(np.abs(a.logprobs[1] - b.logprobs[1]).max())
                  for a, b in zip(rep.results, dense.results) if a.tokens[0] == b.tokens[0])
-    same = sum(int((a.tokens == b.tokens).all()) for a, b in zip(rep.results, dense.results))
+    same = sum(int((a.tokens[:SLICE_DENSE_NEW] == b.tokens).all())
+               for a, b in zip(rep.results, dense.results))
     log(f"[slice] paged vs dense: first-token mixture logp max diff {first:.3e} "
         f"(atol {SLICE_FIRST_LOGP_ATOL}); first decode tick max diff {second:.3e} (bf16, not "
-        f"gated); {same}/{len(sl['trace'])} requests with identical tokens")
+        f"gated); {same}/{len(sl['trace'])} requests with identical first {SLICE_DENSE_NEW} "
+        f"tokens")
     if not first <= SLICE_FIRST_LOGP_ATOL:
         raise AssertionError(f"paged vs dense first-token logp differ by {first}")
     per_tick = {n: c / max(rep.decode_steps, 1) for n, c in counts.items()}
@@ -1339,11 +1433,12 @@ SMOKE_TRAIN_ATOL = 1e-5  # card vs CPU after 3 steps: GEMMs sum in another order
 # Some SMOKE models amplify f32 rounding in their training gradient: the
 # worst leaf's max|g32 - g64| / max|g64| on the CPU (the check's members and
 # batch, scripts/torch_f64_distance.py) is 6.7e-5 for xlstm, 1.8e-4 for
-# qwen2-vl and 2.8e-5 for whisper, against 1.5e-6 and 1.6e-6 for qwen3 and
-# olmoe.  Two f32 runs (card, CPU) may each be that far from the f64 one,
+# qwen2-vl, 2.8e-5 for whisper and 8.1e-5 for recurrentgemma, against 1.5e-6
+# and 1.6e-6 for qwen3 and olmoe.  Two f32 runs (card, CPU) may each be that far from the f64 one,
 # so beyond the atol a leaf of these archs may differ by twice it, relative
 # to the leaf's largest magnitude; qwen3 and olmoe keep the plain atol.
-SMOKE_TRAIN_RTOL = {"xlstm-350m": 1.4e-4, "qwen2-vl-7b": 3.6e-4, "whisper-base": 6e-5}
+SMOKE_TRAIN_RTOL = {"xlstm-350m": 1.4e-4, "qwen2-vl-7b": 3.6e-4, "whisper-base": 6e-5,
+                    "recurrentgemma-2b": 1.6e-4}
 TRAIN_STEPS = 8
 TRAIN_N_DATA = 100_000  # launch/train.py's default
 ADAPTIVE_BURNIN = 4  # both the adapting and the frozen regime within the 8 steps
@@ -1450,8 +1545,8 @@ def step_times(torch, label, launch, plain, g, cfg_full, precond):
         parity_bytes += ec_bytes(K, N, bits=True, precond=precond)
         del o, t_out
         torch.cuda.empty_cache()
-    b_ms, b_by = bound(nbytes, 0.0, F32_FLOPS_PER_S)
-    pb_ms, _ = bound(parity_bytes, 0.0, F32_FLOPS_PER_S)
+    b_ms, b_by = bound(nbytes, 0.0, "f32")
+    pb_ms, _ = bound(parity_bytes, 0.0, "f32")
     log(f"[{label}] one step of qwen3-0.6b K={K}, {len(shapes)} leaves, f32: kernel {ms:.4f} ms "
         f"(Philox mode), bound {b_ms:.4f} ms ({nbytes / 1e9:.2f} GB, {b_by}); parity mode "
         f"{parity_ms:.4f} ms, bound {pb_ms:.4f} ms ({parity_bytes / 1e9:.2f} GB); plain version "
@@ -1750,9 +1845,15 @@ def phase_smoke_train(torch, arch="qwen3-0.6b", label="smoke-train", steps=3):
         reset_launches()
         p, s, h = loop.run(step, params, samp.init(params), lambda t: to(batches[t]),
                            LoopConfig(num_steps=steps, log_every=1), num_chains=K, sampler=samp)
-        if dev == "cuda" and launches["fused_ec_update"] != steps * n_leaves:
-            raise AssertionError(f"SMOKE training launched fused_ec_update "
-                                 f"{launches['fused_ec_update']} times, not {steps * n_leaves}")
+        if dev == "cuda":
+            # the hybrid's RG-LRU layers run the scan and its backward once a
+            # chain a step each
+            n_rglru = sum(k.kind == "rglru" for k in cfg.layer_kinds)
+            want = {"fused_ec_update": steps * n_leaves, "rglru_scan": steps * K * n_rglru,
+                    "rglru_scan_bwd": steps * K * n_rglru}
+            got = {n: launches[n] for n in want}
+            if got != want:
+                raise AssertionError(f"SMOKE training launched {got}, not {want}")
         out[dev] = (p, s, h)
     torch.use_deterministic_algorithms(False)
     rtol = SMOKE_TRAIN_RTOL.get(arch, 0.0)
@@ -1902,6 +2003,118 @@ def phase_train(torch, card, adaptive=False):
                         nll=[m["nll_per_token"] for m in hist])
 
 
+HYBRID_TRAIN_LAYERS = 3  # one (rglru, rglru, attn) period of recurrentgemma-2b's 26 layers
+# EC_CHAINS["recurrentgemma-2b"] is 4, but at K = 4 the step outgrew an
+# H100 80GB even at 3 layers (3.65 GB a member): params, momentum, the four
+# center trees, the stacked gradients and the sampler's update tree are ~20
+# member copies, and the first sync's mean over the (K, 256000, 2560)
+# embedding another 10.5 GB (77.95 GiB allocated when it ran out).  K = 2
+# peaks at ~51 GiB.
+HYBRID_TRAIN_K = 2
+TRAIN_PEAK_LIMIT = 78 * 2**30
+
+
+def phase_train_hybrid(torch, card):
+    """recurrentgemma-2b at its published widths cut to HYBRID_TRAIN_LAYERS
+    layers (a member is 3.65 GB of f32 at 3 layers, 11.58 GB at 26),
+    HYBRID_TRAIN_K = 2 chains (see there) with ``[train]``'s other
+    settings for TRAIN_STEPS steps through train.loop.run in
+    production mode: every RG-LRU layer runs the scan kernel forward and
+    its backward kernel once a chain a step.  Exact launches, finite nll,
+    s/step over steps 2-8, peak memory and the step's model-FLOPs share of
+    the card's bf16 peak (6 * active params * tokens, ``roofline.HW``)."""
+    from repro_torch import configs
+    from repro_torch.data import chain_batches, synthetic_token_stream
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.launch import default_sampler
+    from repro_torch.models import active_params, get_model, tree_leaves
+    from repro_torch.train import LoopConfig, loop, make_train_step
+
+    arch, K = "recurrentgemma-2b", HYBRID_TRAIN_K
+    cfg = configs.get_config(arch).replace(num_layers=HYBRID_TRAIN_LAYERS)
+    model = get_model(cfg)
+    log(f"[train-hybrid] device memory before the phase: "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    torch.cuda.reset_peak_memory_stats()
+    params = stacked_members(torch, cfg, model, K, "cuda", seed0=700)
+    samp = default_sampler(cfg, arch, K, sync_every=4, fused=True, step_size=1e-6)
+    state = samp.init(params)
+    stream = synthetic_token_stream(cfg.vocab_size, seed=0, device="cuda")
+    batch_fn = lambda t: chain_batches(stream, t, K, 4, 64)  # noqa: E731
+    step = make_train_step(cfg, model, samp, TRAIN_N_DATA)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    params, state, hist = loop.run(step, params, state, batch_fn,
+                                   LoopConfig(num_steps=TRAIN_STEPS, log_every=1, seed=0),
+                                   num_chains=K, sampler=samp)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(launches)
+    peak = torch.cuda.max_memory_allocated()
+    n_leaves = len(tree_leaves(params))
+    n_rglru = sum(k.kind == "rglru" for k in cfg.layer_kinds)
+    n_param = sum(x[0].numel() for x in tree_leaves(params))
+    want = {n: 0 for n in counts}
+    want.update(rglru_scan=n_rglru * K * TRAIN_STEPS, rglru_scan_bwd=n_rglru * K * TRAIN_STEPS,
+                fused_ec_update=n_leaves * TRAIN_STEPS)
+    nll = [m["nll_per_token"] for m in hist]
+    steady = (hist[-1]["wall_s"] - hist[0]["wall_s"]) / max(len(hist) - 1, 1)
+    tokens = K * 4 * 64
+    model_flops = 6.0 * active_params(cfg) * tokens
+    share = model_flops / max(steady, 1e-9) / card_peaks()["peak_flops_bf16"]
+    log(f"[train-hybrid] recurrentgemma-2b published widths, {cfg.num_layers} layers "
+        f"({n_rglru} rglru + {cfg.num_layers - n_rglru} attn; {n_param / 1e9:.4f}e9 parameters a "
+        f"member), K={K}, EC-SGHMC fused, batch 4 x 64 per chain, sync every 4, eps 1e-6, "
+        f"{TRAIN_STEPS} steps in {wall:.2f} s; steady {steady:.3f} s/step = "
+        f"{1 / max(steady, 1e-9):.3f} steps/s; peak device memory {peak / 2**30:.2f} GiB [{card}]")
+    log(f"[train-hybrid] nll per token by step {[round(v, 4) for v in nll]} (ln V = "
+        f"{math.log(cfg.vocab_size):.3f}); launches {counts}, expected {want}")
+    log(f"[train-hybrid] model FLOPs a step 6 x {active_params(cfg)} x {tokens} tokens = "
+        f"{model_flops:.4e}: {100 * share:.3f}% of the card's dense bf16 peak at the steady step "
+        f"time ({card_peaks()['card']} in roofline.HW)")
+    if not all(math.isfinite(v) for v in nll) or len(nll) != TRAIN_STEPS:
+        raise AssertionError(f"[train-hybrid] non-finite or missing nll: {nll}")
+    if counts != want:
+        raise AssertionError(f"[train-hybrid] launched {counts}, expected {want}")
+    if peak > TRAIN_PEAK_LIMIT:
+        raise AssertionError(f"[train-hybrid] peak {peak / 2**30:.2f} GiB over 78 GiB")
+    del params, state, samp, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_smoke_train(torch, arch, label="train-hybrid", steps=1)
+    launcher = launch_train_smoke(torch, arch, card)
+    return counts, dict(wall=wall, steady=steady, peak=peak, nll=nll, layers=cfg.num_layers,
+                        K=K, params_per_member=n_param, model_flops=model_flops,
+                        model_flops_share=share, launcher=launcher)
+
+
+def launch_train_smoke(torch, arch, card):
+    """``python -m repro_torch.launch.train --arch <arch> --smoke`` on the
+    card, 4 chains for LAUNCH_TRAIN_STEPS steps (the launcher logs every
+    10): finite nll, and each RG-LRU layer's scan and backward kernels once
+    a chain a step."""
+    from repro_torch import configs
+    from repro_torch.kernels import launches, reset_launches
+    from repro_torch.launch import train as train_launch
+
+    cfg = configs.get_config(arch, smoke=True)
+    args = ["--arch", arch, "--smoke", "--steps", str(LAUNCH_TRAIN_STEPS), "--chains", "4"]
+    reset_launches()
+    hist = train_launch.main(args)
+    torch.cuda.synchronize()
+    n = sum(k.kind == "rglru" for k in cfg.layer_kinds) * 4 * LAUNCH_TRAIN_STEPS
+    got = {k: launches[k] for k in ("rglru_scan", "rglru_scan_bwd")}
+    nll = [m["nll_per_token"] for m in hist]
+    log(f"[train-hybrid] launch.train.main({' '.join(args)}): nll per token {nll}; launches "
+        f"{got} [{card}]")
+    if not hist or not all(math.isfinite(v) for v in nll):
+        raise AssertionError(f"[train-hybrid] launcher nll per token {nll}")
+    if got != {"rglru_scan": n, "rglru_scan_bwd": n}:
+        raise AssertionError(f"[train-hybrid] launcher launched {got}, not {n} each")
+    return dict(nll=nll, launches=got)
+
+
 # ---------------------------------------------------------------------------
 # the paper's experiments: Async SGHMC, swept runs, the MLP and ResNet-32
 # posteriors of Fig. 1 and Fig. 2
@@ -1972,7 +2185,7 @@ def phase_fused_ec_small(torch, ops, ref):
         launch = lambda: fe.launch(*args, None, None, t_out, o["p"], K=K, N=N, seed=EC_KEY,
                                    leaf=0, step=0, scalars=scalars, stochastic_round=True)
         ms, dev = time_ms(torch, launch), device_ms(torch, launch)
-        b_ms, b_by = bound(ec_bytes(K, N), 0.0, F32_FLOPS_PER_S)
+        b_ms, b_by = bound(ec_bytes(K, N), 0.0, "f32")
         path = "4-wide" if fe._vec(N, *args, t_out) else "1-wide"
         log(f"[fused_ec] paper leaf {shape} K={K} (N={N}, {path} path) f32: bitwise equal to the "
             f"plain version in parity mode {same[0]}, Philox mode {same[1]} (max abs err "
@@ -2912,7 +3125,7 @@ def phase_codec(torch, cfg_full):
     dec_ms = time_ms(torch, decode_all, reps=5, warmup=1)
     n = sum(m.numel() for m in means)
     nbytes = 4 * n + offs[-1]
-    b_ms, b_by = bound(nbytes, 0.0, F32_FLOPS_PER_S)
+    b_ms, b_by = bound(nbytes, 0.0, "f32")
     t0 = time.perf_counter()
     host = torch.empty(offs[-1], dtype=torch.int8)
     encode_all(host, [m.cpu() for m in means])
@@ -3699,6 +3912,8 @@ def main() -> int:
     adaptive_counts, train_adaptive = timed("train-adaptive", phase_train, torch, card,
                                             adaptive=True)
     counts["fused_precond_ec_update"] = adaptive_counts["fused_precond_ec_update"]
+    hybrid_train_counts, train_hybrid = timed("train-hybrid", phase_train_hybrid, torch, card)
+    counts["rglru_scan_bwd"] = hybrid_train_counts["rglru_scan_bwd"]
     hybrid_counts, hybrid = timed("slice-hybrid", phase_slice_hybrid, torch, card)
     counts["rglru_scan"] = hybrid_counts["rglru_scan"]
     dense_counts, slice_dense = timed("slice-dense", phase_slice_dense, torch, card)
@@ -3737,6 +3952,11 @@ def main() -> int:
          "src/repro/kernels/fused_ecsghmc.py:156", precond),
         ("rglru_scan", "src/repro_torch/kernels/csrc/rglru.cu", "src/repro/kernels/rglru.py:38",
          next(r for r in rglru if r["shape"] == (1, 128, 2560))),
+        # no Pallas kernel: the reference's gradient of the scan is XLA's
+        # autodiff of the block's jax.lax.associative_scan
+        ("rglru_scan_bwd", "src/repro_torch/kernels/csrc/rglru.cu",
+         "src/repro/models/recurrent.py:73",
+         next(r for r in rglru if r["label"] == "backward train path" and not r["h0"])),
     ]
     kernels = [
         {"name": n, "route": "cuda", "source": src, "replaces": rep, "launches": counts[n],
@@ -3758,9 +3978,13 @@ def main() -> int:
                if label.startswith("nccl")},
             **{f"serve-mesh/gloo rank {r}": g["launches"][name]
                for r, g in serve_mesh["gloo"].items()}}
+    kernels[5]["launches_by_path"] = {"slice-hybrid": hybrid_counts["rglru_scan"],
+                                      "train-hybrid": hybrid_train_counts["rglru_scan"]}
+    kernels[6]["launches_by_path"] = {"train-hybrid": hybrid_train_counts["rglru_scan_bwd"]}
     # the fused kernel's launches on each of its paths, each counted from 0
     kernels[3]["launches_by_path"] = {
         "train": train_counts["fused_ec_update"],
+        "train-hybrid": hybrid_train_counts["fused_ec_update"],
         "refresh-ec": refresh["ec"]["launches"]["fused_ec_update"], "sweep": sweep["launches"],
         **{f"paper-mlp/{j}": n for j, n in mlp_counts.items() if n},
         **{f"paper-resnet/{j}": n for j, n in resnet_counts.items() if n},
@@ -3784,6 +4008,7 @@ def main() -> int:
                                                   "fused_ec": fused, "fused_precond": precond,
                                                   "hybrid": hybrid, "train": train,
                                                   "train_adaptive": train_adaptive,
+                                                  "train_hybrid": train_hybrid,
                                                   "serve_launch": serve_launch,
                                                   "refresh": refresh, "ckpt": ckpt,
                                                   "launch_train": launch_train,

@@ -27,6 +27,21 @@
 // __fadd_rn(__fmul_rn(a, h), x), never contracted into an FMA, so the result
 // equals the plain PyTorch version bit for bit.  h is stored straight from
 // the lanes, 16 consecutive floats per step (coalesced).
+//
+// The backward (rglru_scan_bwd) replaces no Pallas kernel: the reference's
+// gradient of the scan is XLA's autodiff of jax.lax.associative_scan.  It is
+// the same recurrence run backwards in time, g_t = dh_t + a_{t+1} * g_{t+1},
+// with dx_t = g_t, da_t = g_t * h_{t-1} (h_{-1} = h0 or 0) and dh0 = a_0 * g_0,
+// in the plain version's order (ref.rglru_scan_bwd), so it too is bitwise.
+// Bound: bytes.  a, dh and the forward's h are read once and da and dx
+// written once, 20 bytes per element in f32.  The design is the forward's
+// with time reversed: one warp per 16-channel strip, a ring of cp.async
+// tiles of a, h and dh (three streams: BWD_STAGES = 6 tiles of 6 KB, 36 KB
+// a block, under the 48 KB static limit), staged from the last tile to the
+// first.  A lane keeps a_{t+1} and g_{t+1} in registers from the step
+// before, and writes da_{t+1} = g_{t+1} * h_t at step t, when it reads h_t,
+// so every stream is read at the tile's own steps and no tile needs a
+// neighbour's row.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -166,6 +181,120 @@ int launch(const void* a, const void* x, const float* h0, float* out, int B, lon
   return (int)cudaGetLastError();
 }
 
+constexpr int BWD_STAGES = 6;  // the backward stages three streams
+
+// The backward kernel, f32 only (the wrapper casts a and dh).  VEC as in
+// the forward: 16-byte cp.async copies when R % 4 == 0 and every pointer is
+// 16-byte aligned, else plain loads.
+template <bool VEC>
+__global__ void __launch_bounds__(32)
+rglru_scan_grad(const float* __restrict__ a, const float* __restrict__ h,
+                const float* __restrict__ dh, const float* __restrict__ h0,
+                float* __restrict__ da, float* __restrict__ dx, float* __restrict__ dh0,
+                long long S, int R) {
+  constexpr int EPP = 4, PPR = STRIP / EPP, RPP = 32 / PPR;
+  constexpr int TS = TILE * STRIP;
+  __shared__ __align__(16) float sa[BWD_STAGES * TS];
+  __shared__ __align__(16) float sh[BWD_STAGES * TS];
+  __shared__ __align__(16) float sd[BWD_STAGES * TS];
+  const int lane = threadIdx.x;
+  const int r0 = blockIdx.x * STRIP, nch = min(STRIP, R - r0);
+  const size_t base = (size_t)blockIdx.y * (size_t)S * R + r0;
+  const long long ntiles = (S + TILE - 1) / TILE;
+  const int prow = lane / PPR, pcol = (lane % PPR) * EPP;
+  const bool live = pcol < nch;
+  const size_t off = base + (size_t)prow * R + pcol;
+  const size_t pass = (size_t)RPP * R;
+  // the q-th tile in processing order is tile ntiles - 1 - q in time
+  auto stage = [&](long long q, int slot) {
+    const long long t0 = (ntiles - 1 - q) * TILE;
+    const int steps = (int)min((long long)TILE, S - t0);
+    float* ta = sa + slot * TS;
+    float* th = sh + slot * TS;
+    float* td = sd + slot * TS;
+    if (VEC) {
+      if (!live) return;
+      const size_t o = off + (size_t)t0 * R;
+#pragma unroll
+      for (int j = 0; j < TILE / RPP; ++j)
+        if (prow + j * RPP < steps) {
+          const int so = (prow + j * RPP) * STRIP + pcol;
+          cp_async16(ta + so, a + o + j * pass);
+          cp_async16(th + so, h + o + j * pass);
+          cp_async16(td + so, dh + o + j * pass);
+        }
+    } else {
+      for (int e = lane; e < steps * STRIP; e += 32) {
+        const int i = e / STRIP, c = e % STRIP;
+        if (c < nch) {
+          const size_t o = base + (size_t)(t0 + i) * R + c;
+          ta[i * STRIP + c] = a[o];
+          th[i * STRIP + c] = h[o];
+          td[i * STRIP + c] = dh[o];
+        }
+      }
+    }
+  };
+#pragma unroll
+  for (int p = 0; p < BWD_STAGES - 1; ++p) {
+    if (p < ntiles) stage(p, p);
+    cp_async_commit();
+  }
+  const bool mine = lane < nch;
+  // g = -0 and a_{t+1} = 0 before the last step make its g exactly dh_{S-1}
+  // (-0 + v == v for every v, -0 included)
+  float g = -0.f, an = 0.f;
+  float* pda = da + base + lane;
+  float* pdx = dx + base + lane;
+  for (long long q = 0; q < ntiles; ++q) {
+    cp_async_wait<BWD_STAGES - 2>();
+    __syncwarp();
+    const long long next = q + BWD_STAGES - 1;
+    if (next < ntiles) stage(next, (int)(next % BWD_STAGES));
+    cp_async_commit();
+    if (!mine) continue;
+    const int slot = (int)(q % BWD_STAGES);
+    const float* A = sa + slot * TS + lane;
+    const float* H = sh + slot * TS + lane;
+    const float* D = sd + slot * TS + lane;
+    const long long t0 = (ntiles - 1 - q) * TILE;
+    if (q == 0) {  // the last tile in time, maybe partial: no da_S to write
+      const int steps = (int)(S - t0);
+      for (int i = steps - 1; i >= 0; --i) {
+        const long long t = t0 + i;
+        if (t + 1 < S) pda[(size_t)(t + 1) * R] = __fmul_rn(g, H[i * STRIP]);
+        g = __fadd_rn(__fmul_rn(an, g), D[i * STRIP]);
+        pdx[(size_t)t * R] = g;
+        an = A[i * STRIP];
+      }
+      continue;
+    }
+#pragma unroll
+    for (int i = TILE - UNROLL; i >= 0; i -= UNROLL) {
+      float av[UNROLL], hv[UNROLL], dv[UNROLL];
+#pragma unroll
+      for (int j = 0; j < UNROLL; ++j) {
+        av[j] = A[(i + j) * STRIP];
+        hv[j] = H[(i + j) * STRIP];
+        dv[j] = D[(i + j) * STRIP];
+      }
+#pragma unroll
+      for (int j = UNROLL - 1; j >= 0; --j) {
+        const size_t o = (size_t)(t0 + i + j) * R;
+        pda[o + R] = __fmul_rn(g, hv[j]);
+        g = __fadd_rn(__fmul_rn(an, g), dv[j]);
+        pdx[o] = g;
+        an = av[j];
+      }
+    }
+  }
+  if (mine) {
+    const size_t hr = (size_t)blockIdx.y * R + r0 + lane;
+    pda[0] = __fmul_rn(g, h0 != nullptr ? h0[hr] : 0.f);
+    if (dh0 != nullptr) dh0[hr] = __fmul_rn(an, g);
+  }
+}
+
 }  // namespace
 
 extern "C" int rglru_scan_fwd(const void* a, const void* x, const void* h0, void* out, int B,
@@ -176,4 +305,20 @@ extern "C" int rglru_scan_fwd(const void* a, const void* x, const void* h0, void
   float* o = static_cast<float*>(out);
   return is_bf16 ? launch<__nv_bfloat16>(a, x, h, o, B, S, R, st)
                  : launch<float>(a, x, h, o, B, S, R, st);
+}
+
+extern "C" int rglru_scan_bwd(const void* a, const void* h, const void* dh, const void* h0,
+                              void* da, void* dx, void* dh0, int B, long long S, int R,
+                              void* stream) {
+  if (B < 1 || B > 65535 || S < 1 || R < 1) return (int)cudaErrorInvalidValue;
+  const dim3 grid((R + STRIP - 1) / STRIP, B);
+  const bool vec = R % 4 == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(h) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(dh) % 16 == 0;
+  const auto kern = vec ? rglru_scan_grad<true> : rglru_scan_grad<false>;
+  kern<<<grid, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(a), static_cast<const float*>(h), static_cast<const float*>(dh),
+      static_cast<const float*>(h0), static_cast<float*>(da), static_cast<float*>(dx),
+      static_cast<float*>(dh0), S, R);
+  return (int)cudaGetLastError();
 }

@@ -19,7 +19,7 @@ import torch.nn.functional as F
 from . import ref
 
 launches = {"flash_attention": 0, "paged_attention": 0, "bma_select": 0, "fused_ec_update": 0,
-            "fused_precond_ec_update": 0, "rglru_scan": 0}
+            "fused_precond_ec_update": 0, "rglru_scan": 0, "rglru_scan_bwd": 0}
 
 _ATTN_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -39,6 +39,12 @@ def _on_card(*tensors) -> bool:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"no kernel for device {dev}")
     return dev.type == "cuda"
+
+
+def _records_grad(*tensors) -> bool:
+    """True when autograd would record a call on ``tensors``: grad mode is
+    on and one of them requires grad."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 def _require_contiguous(**tensors) -> None:
@@ -78,8 +84,13 @@ def _pad_last(x, dp: int):
 def flash_attention(q, k, v, *, causal=True, window=None, softcap=None, scale=None):
     """(B, Hq, S, d) x (B, Hkv, S, d)^2 -> (B, Hq, S, d) in q's dtype.
     Pads d to 64, 128 or 256; the softmax scale keeps the ORIGINAL head
-    dim."""
+    dim.  The CUDA kernel has no backward, so on the card a call that
+    autograd would record raises (its output would carry no gradient to q,
+    k and v); the plain version on the CPU carries autograd."""
     on_card = _on_card(q, k, v)
+    if on_card and _records_grad(q, k, v):
+        raise NotImplementedError("the flash_attention kernel has no backward: call it under "
+                                  "torch.no_grad(), or on inputs that do not require grad")
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
         raise ValueError("q, k, v must be 4-D (B, H, S, d)")
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _ATTN_DTYPES:
@@ -147,37 +158,14 @@ def paged_attention(q, k_pages, v_pages, block_tables, context_lens,
 # --- RG-LRU scan --------------------------------------------------------------
 
 
-def rglru_scan(a, x, h0=None):
-    """The linear recurrence h_t = a_t * h_{t-1} + x_t over axis 1.  a, x:
-    (B, S, R) of any float dtype, as the reference takes them; h0: (B, R) or
-    None, the carry before step 0.  Returns h (B, S, R) f32.  The kernel
-    reads a and x both f32 or both bf16; any other pair is cast to f32
-    first, as the reference casts its inputs (f16 and bf16 widen to f32
-    exactly).  The CUDA kernel has no backward (that is the training
-    slice's), so on the card a call whose inputs require grad raises."""
-    on_card = _on_card(*(t for t in (a, x, h0) if t is not None))
-    if a.ndim != 3 or x.shape != a.shape:
-        raise ValueError(f"a and x must be (B, S, R) of one shape, got {tuple(a.shape)}, "
-                         f"{tuple(x.shape)}")
-    if not (a.is_floating_point() and x.is_floating_point()):
-        raise ValueError(f"a and x must be floating point, got {a.dtype}, {x.dtype}")
-    B, S, R = a.shape
-    if h0 is not None:
-        if h0.shape != (B, R) or not h0.is_floating_point():
-            raise ValueError(f"h0 must be a float tensor of shape {(B, R)}, got "
-                             f"{h0.dtype} {tuple(h0.shape)}")
-        h0 = h0.float().contiguous()
-    _require_contiguous(a=a, x=x)
+def _scan_fwd(a, x, h0, on_card):
+    """h (B, S, R) f32: the plain version on the CPU, the kernel on CUDA
+    (a and x both f32 or both bf16; any other pair is cast to f32)."""
     if not on_card:
         return ref.rglru_scan(a, x, h0)
-    if a.requires_grad or x.requires_grad or (h0 is not None and h0.requires_grad):
-        raise NotImplementedError("the rglru_scan kernel has no backward; its gradient "
-                                  "waits for the hybrid family's training slice")
-    if B > 65535:
-        raise ValueError(f"kernel takes B <= 65535, got {B}")
     if not (a.dtype == x.dtype and a.dtype in _ATTN_DTYPES):
         a, x = a.float(), x.float()
-    out = torch.empty((B, S, R), dtype=torch.float32, device=a.device)
+    out = torch.empty(a.shape, dtype=torch.float32, device=a.device)
     if out.numel() == 0:
         return out
     from . import rglru as _rg
@@ -185,6 +173,75 @@ def rglru_scan(a, x, h0=None):
     _rg.launch(a, x, h0, out)
     launches["rglru_scan"] += 1
     return out
+
+
+def _scan_bwd(a, h, dh, h0, on_card):
+    """(da, dx, dh0) f32, dh0 None without h0: the plain version on the
+    CPU, the backward kernel on CUDA (a and dh cast to f32)."""
+    if not on_card:
+        return ref.rglru_scan_bwd(a, h, dh, h0)
+    a, dh = a.float().contiguous(), dh.float().contiguous()
+    da, dx = torch.empty_like(a), torch.empty_like(a)
+    dh0 = torch.empty_like(h0) if h0 is not None else None
+    if a.numel() == 0:
+        return da, dx, dh0.zero_() if dh0 is not None else None
+    from . import rglru as _rg
+
+    _rg.launch_bwd(a, h, dh, h0, da, dx, dh0)
+    launches["rglru_scan_bwd"] += 1
+    return da, dx, dh0
+
+
+class _RGLRUScan(torch.autograd.Function):
+    """The scan with its gradient: forward and backward are the kernels on
+    CUDA and their plain versions on the CPU.  Saves a and the output h;
+    returns each gradient in its input's dtype.  It has no vmap rule (a
+    ctypes launch cannot run on batched tensors), so ``torch.func.vmap``
+    over it raises; ``torch.func.grad`` works on the CPU."""
+
+    @staticmethod
+    def forward(a, x, h0, on_card):
+        return _scan_fwd(a, x, h0, on_card)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        a, x, h0, ctx.on_card = inputs
+        ctx.save_for_backward(a, output, h0)
+        ctx.x_dtype = x.dtype
+
+    @staticmethod
+    def backward(ctx, dh):
+        a, h, h0 = ctx.saved_tensors
+        da, dx, dh0 = _scan_bwd(a, h, dh, h0, ctx.on_card)
+        need_a, need_x, need_h0, _ = ctx.needs_input_grad
+        return (da.to(a.dtype) if need_a else None, dx.to(ctx.x_dtype) if need_x else None,
+                dh0 if need_h0 else None, None)
+
+
+def rglru_scan(a, x, h0=None):
+    """The linear recurrence h_t = a_t * h_{t-1} + x_t over axis 1.  a, x:
+    (B, S, R) of any float dtype, as the reference takes them; h0: (B, R) or
+    None, the carry before step 0.  Returns h (B, S, R) f32.  The kernel
+    reads a and x both f32 or both bf16; any other pair is cast to f32
+    first, as the reference casts its inputs (f16 and bf16 widen to f32
+    exactly).  Differentiable in a, x and h0: the backward runs the
+    reverse-time kernel on the card (``launches["rglru_scan_bwd"]``)."""
+    on_card = _on_card(*(t for t in (a, x, h0) if t is not None))
+    if a.ndim != 3 or x.shape != a.shape:
+        raise ValueError(f"a and x must be (B, S, R) of one shape, got {tuple(a.shape)}, "
+                         f"{tuple(x.shape)}")
+    if not (a.is_floating_point() and x.is_floating_point()):
+        raise ValueError(f"a and x must be floating point, got {a.dtype}, {x.dtype}")
+    B, _, R = a.shape
+    if h0 is not None:
+        if h0.shape != (B, R) or not h0.is_floating_point():
+            raise ValueError(f"h0 must be a float tensor of shape {(B, R)}, got "
+                             f"{h0.dtype} {tuple(h0.shape)}")
+        h0 = h0.float().contiguous()
+    _require_contiguous(a=a, x=x)
+    if on_card and B > 65535:
+        raise ValueError(f"kernel takes B <= 65535, got {B}")
+    return _RGLRUScan.apply(a, x, h0, on_card)
 
 
 # --- fused BMA mixture + selection -------------------------------------------

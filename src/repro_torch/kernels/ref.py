@@ -244,9 +244,34 @@ def rglru_scan(a, x, h0=None):
     ``x[:, 0] += a[:, 0] * h0``).  Returns h (B, S, R) f32."""
     a, x = a.float(), x.float()
     B, S, R = a.shape
-    h = h0.float() if h0 is not None else torch.zeros((B, R), dtype=torch.float32, device=a.device)
-    out = torch.empty((B, S, R), dtype=torch.float32, device=a.device)
+    h = h0.float() if h0 is not None else torch.zeros((B, R), dtype=a.dtype, device=a.device)
+    out = torch.empty((B, S, R), dtype=a.dtype, device=a.device)
     for t in range(S):
         h = a[:, t] * h + x[:, t]
         out[:, t] = h
     return out
+
+
+def rglru_scan_bwd(a, h, dh, h0=None):
+    """The scan's gradient: given a (B, S, R), the forward's output h, its
+    cotangent dh, and h0 (B, R) or None, returns (da, dx, dh0), f32, dh0
+    None without h0.  Walks t from S-1 down to 0, sequentially in f32,
+    each step a multiply and then an add, so the CUDA kernel equals it bit
+    for bit:
+
+        g_{S-1} = dh_{S-1},  g_t = dh_t + a_{t+1} * g_{t+1}
+        dx_t = g_t,  da_t = g_t * h_{t-1} (h_{-1} = h0, or zeros),
+        dh0 = a_0 * g_0."""
+    a, h, dh = a.float(), h.float(), dh.float()
+    S = a.shape[1]
+    dx = torch.empty_like(dh)
+    g = dh[:, S - 1]
+    dx[:, S - 1] = g
+    for t in range(S - 2, -1, -1):
+        g = dh[:, t] + a[:, t + 1] * g
+        dx[:, t] = g
+    h_prev = torch.cat([(h0.float() if h0 is not None else torch.zeros_like(h[:, 0]))[:, None],
+                        h[:, :-1]], dim=1)
+    da = dx * h_prev
+    dh0 = a[:, 0] * dx[:, 0] if h0 is not None else None
+    return da, dx, dh0

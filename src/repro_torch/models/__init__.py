@@ -1,5 +1,6 @@
 from . import encdec, mlp, resnet
-from .common import LayerKind, ModelConfig, ParamSpec, init_params, num_params, tree_leaves, tree_map
+from .common import (LayerKind, ModelConfig, ParamSpec, active_params, init_params, num_params,
+                     tree_leaves, tree_map)
 from .registry import ModelDef, PagedDef, get_model
 
 __all__ = [
@@ -8,6 +9,7 @@ __all__ = [
     "ModelDef",
     "PagedDef",
     "ParamSpec",
+    "active_params",
     "encdec",
     "get_model",
     "init_params",

@@ -185,3 +185,18 @@ def num_params(cfg: ModelConfig) -> int:
 
     specs = registry.get_model(cfg).param_specs(cfg)
     return sum(math.prod(s.shape) for s in tree_leaves(specs))
+
+
+def active_params(cfg: ModelConfig) -> int:
+    """Params touched per token, for 6 * N_active * tokens: an expert
+    leaf counts top_k / num_experts of its size (MoE), as in the
+    reference."""
+    from . import registry
+
+    total = 0
+    for s in tree_leaves(registry.get_model(cfg).param_specs(cfg)):
+        n = math.prod(s.shape)
+        if "expert" in s.axes and cfg.moe_num_experts:
+            n = n * cfg.moe_top_k // cfg.moe_num_experts
+        total += n
+    return total

@@ -461,6 +461,29 @@ def test_flash_guards(guard):
         ops.flash_attention(*FLASH_GUARDS[guard](*_qkv()))
 
 
+def test_flash_grad_guard_condition():
+    """The flash kernel has no backward: its wrapper asks whether autograd
+    would record the call (grad mode on and an input requiring grad)."""
+    q, k, v = _qkv()
+    assert not ops._records_grad(q, k, v)
+    assert ops._records_grad(q, k.clone().requires_grad_(), v)
+    with torch.no_grad():
+        assert not ops._records_grad(q.clone().requires_grad_(), k, v)
+    # the plain version on the CPU carries the gradient
+    q = torch.randn(1, 2, 8, 64, requires_grad=True)
+    (g,) = torch.autograd.grad(ops.flash_attention(q, k[:, :1], v[:, :1]).sum(), [q])
+    assert g.shape == q.shape
+
+
+def test_flash_card_branch_refuses_grad(monkeypatch):
+    """On the card, a call that autograd would record raises before the
+    kernel (whose output would carry no gradient to q, k and v)."""
+    monkeypatch.setattr(ops, "_on_card", lambda *t: True)
+    q, k, v = _qkv()
+    with pytest.raises(NotImplementedError, match="no backward"):
+        ops.flash_attention(q.requires_grad_(), k, v)
+
+
 def _paged_args(G=2, bs=4, d=64):
     return dict(q=torch.zeros(2, 1, G, d), k_pages=torch.zeros(5, bs, 1, d),
                 v_pages=torch.zeros(5, bs, 1, d),
@@ -525,7 +548,7 @@ def entry(name):
     return fn
 lib = types.SimpleNamespace(**{n: entry(n) for n in (
     "flash_attention_fwd", "paged_attention_fwd", "bma_select_fwd", "rglru_scan_fwd",
-    "fused_ec_update", "fused_precond_ec_update")})
+    "rglru_scan_bwd", "fused_ec_update", "fused_precond_ec_update")})
 _build.library = lambda name: lib
 ops._on_card = lambda *t: True
 torch.cuda.current_stream = lambda device=None: types.SimpleNamespace(cuda_stream=0)
@@ -547,19 +570,24 @@ elif WRAPPER == "fused_precond_ec_update":
     z = torch.zeros((2, 12))
     ops.fused_precond_ec_update(z, z, z, z[0], z, eps=1e-2, friction=1.0, alpha=1.0,
                                 sigma_p=0.1, seed=9, leaf=1, step=3)
+elif WRAPPER == "rglru_scan_bwd":  # the forward, then its backward through autograd
+    a = torch.zeros((2, 8, 32), dtype=torch.float16, requires_grad=True)
+    h0 = torch.zeros((2, 32), requires_grad=True)
+    ops.rglru_scan(a, torch.zeros((2, 8, 32)), h0).sum().backward()
+    assert a.grad.dtype == torch.float16 and h0.grad.shape == (2, 32)
 else:  # an f16 a with an f32 x: the kernel reads both as f32
     ops.rglru_scan(torch.zeros((2, 8, 32), dtype=torch.float16), torch.zeros((2, 8, 32)))
-(name, args), = calls
+name, args = calls[-1]
 fn = getattr(lib, name)
 kinds = ["ptr" if t is ctypes.c_void_p else "float" if t is ctypes.c_float
          else "int%d" % (8 * ctypes.sizeof(t)) for t in fn.argtypes]
 counter = "bma_select" if WRAPPER == "fused_bma_select" else WRAPPER
-print(json.dumps(dict(name=name, kinds=kinds, launches=ops.launches[counter],
+print(json.dumps(dict(name=name, kinds=kinds, launches=ops.launches[counter], calls=len(calls),
                       args=[a if isinstance(a, (int, float)) or a is None else repr(a) for a in args])))
 """
 
 _SOURCES = {"flash_attention": "flash_attention", "paged_attention": "paged_attention",
-            "fused_bma_select": "bma_select", "rglru_scan": "rglru",
+            "fused_bma_select": "bma_select", "rglru_scan": "rglru", "rglru_scan_bwd": "rglru",
             "fused_ec_update": "fused_ecsghmc", "fused_precond_ec_update": "fused_ecsghmc"}
 
 
@@ -579,7 +607,8 @@ def _c_signature(source: str, entry: str):
 
 
 @pytest.mark.parametrize("wrapper", ["flash_attention", "paged_attention", "fused_bma_select",
-                                     "rglru_scan", "fused_ec_update", "fused_precond_ec_update"])
+                                     "rglru_scan", "rglru_scan_bwd", "fused_ec_update",
+                                     "fused_precond_ec_update"])
 def test_card_branch_reaches_the_c_entry(wrapper):
     import json
     import subprocess
@@ -591,6 +620,7 @@ def test_card_branch_reaches_the_c_entry(wrapper):
     assert out.returncode == 0, out.stderr
     got = json.loads(out.stdout.strip().splitlines()[-1])
     assert got["launches"] == 1
+    assert got["calls"] == (2 if wrapper == "rglru_scan_bwd" else 1)
     assert got["kinds"] == _c_signature(_SOURCES[wrapper], got["name"])
     assert len(got["args"]) == len(got["kinds"])
     if wrapper == "fused_bma_select":  # logits (4, 3, 5000), logprobs, T 0.7, top-k 50
@@ -598,6 +628,10 @@ def test_card_branch_reaches_the_c_entry(wrapper):
         assert got["args"][6:10] == [4, 3, 5000, 1] and got["args"][11] == 50
     if wrapper == "rglru_scan":  # (B, S, R, is_bf16)
         assert got["args"][4:8] == [2, 8, 32, 0]
+    if wrapper == "rglru_scan_bwd":  # h0 and dh0 given, then (B, S, R)
+        assert got["name"] == "rglru_scan_bwd"
+        assert got["args"][3] is not None and got["args"][6] is not None
+        assert got["args"][7:10] == [2, 8, 32]
     if wrapper == "fused_ec_update":  # (K, N, chain_offset), then seed, leaf, step
         assert got["args"][8:11] == [2, 12, 2] and got["args"][14:17] == [9, 1, 3]
     if wrapper == "fused_precond_ec_update":  # (K, N), no chain_offset
@@ -667,3 +701,12 @@ def test_cuda_kernels_match_plain_versions(card):
                 rtok, rlogp = ref.bma_select(logits, g, mode=mode, temperature=T, top_k=k)
                 torch.testing.assert_close(logp, rlogp, atol=1e-5, rtol=0)
                 torch.testing.assert_close(tok, rtok, atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_refuses_grad(card):
+    q, k, v = (torch.zeros(1, 2, 8, 64, device=card) for _ in range(3))
+    with pytest.raises(NotImplementedError, match="no backward"):
+        ops.flash_attention(q.requires_grad_(), k[:, :1].contiguous(), v[:, :1].contiguous())
+    with torch.no_grad():
+        assert ops.flash_attention(q, k[:, :1].contiguous(), v[:, :1].contiguous()).shape == q.shape

@@ -1,5 +1,5 @@
-"""The port stands alone: ``repro_torch`` (its trace validator and ``python
--m repro_torch.obs`` too), ``chip_smoke.py`` and the rank functions of the
+"""The port stands alone: ``repro_torch`` (its trace validator, ``python -m
+repro_torch.obs`` and the roofline too), ``chip_smoke.py`` and the rank functions of the
 multi-rank tests (``tests/torch_shard_workers.py``,
 ``tests/torch_serve_workers.py``) import neither jax nor anything of the
 reference package ``repro``."""
@@ -36,7 +36,8 @@ def test_importing_every_module_loads_no_jax():
             "repro_torch.configs.xlstm_350m", "repro_torch.configs.qwen2_vl_7b",
             "repro_torch.configs.whisper_base", "repro_torch.launch.specs",
             "repro_torch.obs.sinks", "repro_torch.obs.validate",
-            "repro_torch.obs.__main__"} <= set(mods)
+            "repro_torch.obs.__main__", "repro_torch.roofline",
+            "repro_torch.roofline.analytic"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

@@ -6,9 +6,10 @@ loop).  These tests hold both against ``repro.kernels.ref.rglru_scan`` and,
 at the shapes it accepts, against ``repro.kernels.ops.rglru_scan`` (the
 Pallas kernel, in interpret mode on the CPU), on the same numpy inputs, at
 the reference suite's tolerance (``tests/test_kernels.py::TestRGLRU``).
-The CUDA kernel runs only on a card: ``chip_smoke.py`` holds it against the
-plain version there, bit for bit, and the ``cuda``-marked test below skips
-without one.
+The CUDA kernels (the scan and its backward) run only on a card:
+``chip_smoke.py`` holds them against the plain versions there, bit for bit,
+and the ``cuda``-marked test below skips without one.  The gradient's CPU
+tests are in ``test_torch_rglru_grad.py``.
 """
 from __future__ import annotations
 
@@ -129,8 +130,9 @@ def test_narrow_and_mixed_dtypes_match_reference(dtypes):
 
 
 def test_cpu_path_is_differentiable():
-    """On the CPU the plain version carries autograd (the reference
-    trains through its scan); the card's kernel raises instead."""
+    """On the CPU the scan is differentiable (the reference trains through
+    its scan): the gradient runs the plain reverse-time scan, as the card
+    runs its backward kernel."""
     a, x, _ = _inputs(5, 1, 8, 4)
     at, xt = torch.tensor(a, requires_grad=True), torch.tensor(x, requires_grad=True)
     ops.rglru_scan(at, xt).sum().backward()
@@ -194,5 +196,15 @@ def test_cuda_kernel_matches_plain_version_bitwise(card):
                 for v in _inputs(8, 2, 300, 77, True))
     ab, xb = a.to(torch.bfloat16), x.to(torch.bfloat16)
     assert torch.equal(ops.rglru_scan(ab, xb, h0), ref.rglru_scan(ab, xb, h0))
-    with pytest.raises(NotImplementedError):
-        ops.rglru_scan(a.requires_grad_(), x, h0)
+    # the gradient runs the backward kernel, bit for bit the plain backward
+    for B, S, R, with_h0 in ((4, 64, 2560, False), (2, 300, 77, True)):
+        a, x, h0 = (None if v is None else torch.tensor(v, device=card, requires_grad=True)
+                    for v in _inputs(9, B, S, R, with_h0))
+        dh = torch.randn((B, S, R), device=card)
+        h = ops.rglru_scan(a, x, h0)
+        before = launches["rglru_scan_bwd"]
+        got = torch.autograd.grad(h, [t for t in (a, x, h0) if t is not None], dh)
+        assert launches["rglru_scan_bwd"] == before + 1
+        want = ref.rglru_scan_bwd(a.detach(), h.detach(), dh, None if h0 is None else h0.detach())
+        for g, w in zip(got, [w for w in want if w is not None]):
+            assert torch.equal(g.view(torch.int32), w.view(torch.int32))

@@ -166,9 +166,10 @@ def check_train_nll(s, S=24):
     return float(n)
 
 
-def check_grads(s, batch, scale_rtol=SCALE_RTOL):
+def check_grads(s, batch, scale_rtol=SCALE_RTOL, jit=False):
     """``train_nll``'s gradient of the mean NLL on ``batch`` (numpy arrays),
-    leaf by leaf: torch autograd against ``jax.grad``."""
+    leaf by leaf: torch autograd against ``jax.grad`` (compiled first with
+    ``jit``, which is quicker where the eager reference is slow)."""
     from repro_torch.models.common import tree_unflatten
 
     jcfg, jmodel, jparams, cfg, params = s
@@ -177,7 +178,8 @@ def check_grads(s, batch, scale_rtol=SCALE_RTOL):
         total, count = jmodel.train_nll(jcfg, p, {k: jnp.asarray(v) for k, v in batch.items()})
         return total / count
 
-    jgrads = jax.tree.leaves(jax.grad(jloss)(jparams))
+    jgrad = jax.jit(jax.grad(jloss)) if jit else jax.grad(jloss)
+    jgrads = jax.tree.leaves(jgrad(jparams))
     leaves = [a.clone().requires_grad_(True) for a in tree_leaves(params)]
     total, count = get_model(cfg).train_nll(cfg, tree_unflatten(params, leaves),
                                             {k: torch.tensor(v) for k, v in batch.items()})
