@@ -82,8 +82,9 @@ It imports torch, numpy and repro_torch only, and:
    layers (K = 1) on the paged engine (``[slice-moe]``), greedy and (olmoe)
    at T=0.7/top-k 50, with exact launch counts; each SMOKE engine on the
    card against the CPU, and SMOKE olmoe training (the MoE backward);
-10. every other architecture of the reference: xlstm-350m (21 mLSTM and
-   3 sLSTM blocks) at full width and depth, K = 4 (``[slice-xlstm]``), and
+10. every other architecture of the reference: xlstm-350m at full width
+   cut to one period of 7 mLSTM and 1 sLSTM block (of 24 layers), K = 4
+   (``[slice-xlstm]``), and
    qwen2-vl-7b (M-RoPE) at full width and depth in bf16, K = 2
    (``[slice-vlm]``), on the dense engine over ``[slice-dense]``'s trace
    with exact launch counts (bma_select only: no attention layer, and
@@ -137,7 +138,19 @@ It imports torch, numpy and repro_torch only, and:
    version at every tick; ``[serve-launch]`` and ``[refresh-ec]`` export
    their traces, which ``repro_torch.obs.validate`` checks (profiles
    ``serve`` and ``serve_ec``);
-15. prints one JSON line of the seven kernels (the six ported Pallas kernels
+15. the dry run (``[dryrun]``): each kernel's ``torch.library`` form on the
+   card against its plain version and under ``FakeTensorMode`` (the real
+   call's output shapes, no launch); qwen3-0.6b and recurrentgemma-2b at
+   full width on train_4k and decode_32k traced by
+   ``launch.dryrun.run_cell`` on the 256-rank fake world (per-device
+   arguments, peak, collectives, FLOPs and trace time printed as
+   predictions for the card); and four cells one card holds (both archs,
+   train and decode, recurrentgemma's train cut to 3 layers), each
+   predicted on a one-rank fake world and run for real on a one-rank NCCL
+   mesh, the predicted peak within ``DRYRUN_RTOL`` of the measured
+   ``max_memory_allocated``; the fake worlds run in processes of their
+   own, beside a spawned rank for the real runs;
+16. prints one JSON line of the seven kernels (the six ported Pallas kernels
    and the scan's backward, with each kernel's launches on each of its
    paths), the card line, and the result line.
 
@@ -1080,15 +1093,19 @@ VLM_PREFILL_PATCHES = 64  # launch/specs.py's VLM_PATCHES: an 8 x 8 grid of patc
 AUDIO_ENSEMBLE = dict(K=4, batch=4, prompt_len=16, gen=16)
 
 
+XLSTM_LAYERS = 8  # [slice-xlstm]: one period of 24 (cut so that [dryrun] fits the time limit)
+
+
 def phase_slice_xlstm(torch, card):
-    """xlstm-350m at its published widths and depth (21 mLSTM and 3 sLSTM
-    blocks), K = 4, on the dense engine over ``[slice-dense]``'s trace,
+    """xlstm-350m at its published widths cut to XLSTM_LAYERS (one period:
+    7 mLSTM and 1 sLSTM block), K = 4, on the dense engine over
+    ``[slice-dense]``'s trace,
     greedy: bma_select once a tick, no flash or paged launch (no attention
     layer), paged refused; the SMOKE engine and SMOKE training on the card
     against the CPU."""
     arch = "xlstm-350m"
     sl = serve_slice(torch, card, arch, paged=False, kernels=BMA_ONLY, tag="slice-xlstm",
-                     seed0=700, **FAMILY_TRACE)
+                     seed0=700, layers=XLSTM_LAYERS, **FAMILY_TRACE)
     counts = family_launches(sl, sl["greedy"], sl["counts"], "slice-xlstm", paged=False,
                              flash_layers=0)
     out = family_record(sl)
@@ -3818,6 +3835,273 @@ def phase_serve_mesh(torch, card):
     return out
 
 
+# [dryrun]: (a) full-width cells on the 256-rank fake world; (b) cells one
+# card holds, predicted on a one-rank fake world and then run for real on a
+# one-rank NCCL mesh: (arch, shape, (seq, global batch) that replace the
+# shape's, chains, config overrides).  The fake processes, each job's cells:
+DRYRUN_FULL = (("qwen3-0.6b", "train_4k"), ("qwen3-0.6b", "decode_32k"),
+               ("recurrentgemma-2b", "train_4k"), ("recurrentgemma-2b", "decode_32k"))
+DRYRUN_JOBS = {"full-qwen3-train": DRYRUN_FULL[:1], "full-hybrid-train": DRYRUN_FULL[2:3],
+               "full-decode": DRYRUN_FULL[1::2], "predict-train": (0, 2),
+               "predict-decode": (1, 3)}
+DRYRUN_CARD = (
+    ("qwen3-0.6b", "train_4k", (64, 8), 2, {}),
+    ("qwen3-0.6b", "decode_32k", (8192, 16), None, {}),
+    ("recurrentgemma-2b", "train_4k", (64, 8), 2, {"num_layers": 3}),  # [train-hybrid]'s cut
+    ("recurrentgemma-2b", "decode_32k", (4096, 32), None, {}),
+)
+DRYRUN_RTOL = 0.10  # predicted peak vs measured max_memory_allocated
+
+
+def _dryrun_card_cell(spec):
+    """Build one (b) cell: the shape narrowed, the mesh of one rank."""
+    from repro_torch import configs
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch.specs import build_cell
+
+    arch, shape, (seq, batch), k, overrides = spec
+    kind = configs.SHAPES[shape].kind
+    configs.SHAPES[shape] = configs.ShapeCell(shape, kind, seq, batch)
+    mesh = (mesh_lib.make_train_mesh(1, size=1) if kind == "train"
+            else mesh_lib.make_production_mesh(size=1))
+    return build_cell(arch, shape, mesh, num_chains=k, overrides=overrides)
+
+
+def dryrun_child(job: str, out_path: str) -> None:
+    """A [dryrun] process with a fake world, running DRYRUN_JOBS[job]: the
+    full-width cells on 256 ranks (records written under
+    build/chip_smoke/dryrun/), or the DRYRUN_CARD cells (by index) on one.
+    Writes its records, and its seconds from start, to ``out_path``."""
+    t0 = time.perf_counter()
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch  # noqa: F401
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+
+    out = {"_s": {"import": time.perf_counter() - t0}}
+    if job.startswith("predict"):
+        dryrun.start_fake_world(1)
+        for i in DRYRUN_JOBS[job]:
+            spec = DRYRUN_CARD[i]
+            out[f"{spec[0]}/{spec[1]}"] = dryrun.trace_cell(_dryrun_card_cell(spec))
+    else:
+        dryrun.start_fake_world(256)
+        for arch, shape in DRYRUN_JOBS[job]:
+            out[f"{arch}/{shape}"] = dryrun.run_cell(arch, shape, False, OUT / "dryrun")
+    out["_s"]["total"] = time.perf_counter() - t0
+    out["_launches"] = dict(ops.launches)
+    pathlib.Path(out_path).write_text(json.dumps(out, default=str))
+
+
+def dryrun_measure_rank(rank, world):
+    """The DRYRUN_CARD cells for real on a one-rank NCCL mesh (spawned, so
+    the process holds no fake group): zero-filled arguments in the cells'
+    layouts, then ``Cell.fn`` once, with ``max_memory_allocated`` read
+    around it."""
+    import torch
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels import ops
+
+    out = {}
+    for spec in DRYRUN_CARD:
+        cell = _dryrun_card_cell(spec)
+        args = shd.empty_tree(cell.args, cell.in_shardings, cell.mesh, "cuda", zeros=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        with implicit_replication():
+            res = cell.fn(*args)
+        torch.cuda.synchronize()
+        out[f"{spec[0]}/{spec[1]}"] = {
+            "measured_peak": torch.cuda.max_memory_allocated(), "args_allocated": base,
+            "run_s": time.perf_counter() - t0, "launches": dict(ops.launches),
+            "finite": bool(all(torch.isfinite(t.full_tensor() if shd.is_dtensor(t) else t).all()
+                               for t in _leaves(res) if t.is_floating_point()))}
+        del args, res, cell
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _leaves(tree):
+    from repro_torch.models.common import map_tensors
+
+    out = []
+    map_tensors(lambda t: out.append(t), tree)
+    return out
+
+
+def phase_dryrun_ops(torch, ops, ref):
+    """(c) Each kernel's torch.library form on the card: called directly on
+    card tensors against its plain version (the wrappers call these forms
+    on the card), and under FakeTensorMode with card-device fake tensors,
+    where it gives the real call's output shapes and launches nothing."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    g = torch.Generator(device="cuda").manual_seed(31)
+    dev = "cuda"
+    rn = lambda *s, dt=torch.float32: torch.randn(*s, generator=g, device=dev).to(dt)  # noqa: E731
+    a = torch.rand(2, 96, 256, generator=g, device=dev)
+    x = rn(2, 96, 256)
+    h = ref.rglru_scan(a, x, None)
+    dh = rn(2, 96, 256)
+    q, k, v = rn(1, 4, 128, 64), rn(1, 2, 128, 64), rn(1, 2, 128, 64)
+    kp, vp = rn(9, 16, 2, 64), rn(9, 16, 2, 64)
+    qd = rn(3, 2, 2, 64)
+    tables = torch.tensor([[1, 2, 3, 4], [5, 6, 7, 8], [1, 3, 5, 7]], dtype=torch.int32,
+                          device=dev)
+    ctx = torch.tensor([40, 63, 17], dtype=torch.int32, device=dev)
+    logits = rn(3, 4, 5000)
+    th, p, gr = rn(2, 3000), rn(2, 3000), rn(2, 3000)
+    ct, minv = rn(3000), torch.rand(2, 3000, generator=g, device=dev) + 0.5
+    b1, b2 = (torch.randint(-2**31, 2**31 - 1, (6000,), generator=g, device=dev,
+                            dtype=torch.int32) for _ in range(2))
+    sc = [float(v_) for v_ in ref.ec_scalars(1e-3, 1.0, 1.0, 1.0, 0.05)]
+    psc = [float(v_) for v_ in ref.precond_scalars(1e-3, 1.0, 1.0, 0.05)]
+    T = torch.ops.repro_torch
+    calls = {
+        "rglru_scan": (lambda: T.rglru_scan(a, x, None), lambda: ref.rglru_scan(a, x, None)),
+        "rglru_scan_bwd": (lambda: T.rglru_scan_bwd(a, h, dh, None)[:2],
+                           lambda: ref.rglru_scan_bwd(a, h, dh, None)[:2]),
+        "flash_attention": (lambda: T.flash_attention(q, k, v, True, None, None, 0.125),
+                            lambda: ref.attention(q, k, v, causal=True, window=None,
+                                                  softcap=None, scale=0.125)),
+        "paged_attention": (lambda: T.paged_attention(qd, kp, vp, tables, ctx, 0.125, None, None),
+                            lambda: ref.paged_attention(qd, kp, vp, tables, ctx, scale=0.125,
+                                                        window=None, softcap=None)),
+        "bma_select": (lambda: T.bma_select(logits, None, "probs", 0.0, 0),
+                       lambda: ref.bma_select(logits, None, mode="probs", temperature=0.0,
+                                              top_k=0)),
+        "fused_ec_update": (
+            lambda: (T.fused_ec_update(th, p, gr, ct, b1, b2, p_ec := p.clone(), 2, 3000, 0, 0,
+                                       0, 0, sc, True, 0), p_ec),
+            lambda: ref.fused_ec_update(th, p, gr, ct, b1.view(2, 3000), b2.view(2, 3000),
+                                        scalars=tuple(sc), stochastic_round=True)),
+        "fused_precond_ec_update": (
+            lambda: (T.fused_precond_ec_update(th, p, gr, ct, minv, b1, b2, p_pc := p.clone(), 2,
+                                               3000, 0, 0, 0, 0, psc, True), p_pc),
+            lambda: ref.fused_precond_ec_update(th, p, gr, ct, minv, b1.view(2, 3000),
+                                                b2.view(2, 3000), scalars=tuple(psc),
+                                                stochastic_round=True)),
+    }
+    if set(calls) != set(ops.OPS):
+        raise AssertionError(f"[dryrun] the forms checked {sorted(calls)} are not {ops.OPS}")
+    rows = {}
+    for name, (op, plain) in calls.items():
+        got, want = op(), plain()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        err = max(float((gg.float() - ww.float()).abs().max()) for gg, ww in zip(got, want)
+                  if ww.is_floating_point())
+        tol = FLASH_ATOL if "attention" in name else BMA_LOGP_ATOL if name == "bma_select" else 0.0
+        if not err <= tol or (name == "bma_select" and not torch.equal(got[0], want[0])):
+            raise AssertionError(f"[dryrun] {name}'s torch.library form: max|op - plain| = "
+                                 f"{err} > {tol}")
+        before = dict(ops.launches)
+        with FakeTensorMode(allow_non_fake_inputs=True) as fm:
+            fake = op()
+        fake = fake if isinstance(fake, tuple) else (fake,)
+        if ops.launches != before or [tuple(t.shape) for t in fake] != [
+                tuple(t.shape) for t in got] or [t.dtype for t in fake] != [t.dtype for t in got]:
+            raise AssertionError(f"[dryrun] {name}'s fake form: shapes {[t.shape for t in fake]}"
+                                 f" vs {[t.shape for t in got]}, launches {ops.launches} vs {before}")
+        del fm
+        rows[name] = err
+        log(f"[dryrun] {name}: torch.library form vs plain max_abs_err={err:.3e} (atol {tol}); "
+            f"under FakeTensorMode the output shapes, no launch")
+    return rows
+
+
+def phase_dryrun(torch, card):
+    """[dryrun]: (a) qwen3-0.6b and recurrentgemma-2b at full width on
+    train_4k and decode_32k, traced on the 256-rank fake world by
+    ``launch.dryrun.run_cell``; (b) the DRYRUN_CARD cells predicted on a
+    one-rank fake world and run for real on a one-rank NCCL mesh (a
+    spawned rank), all at once (DRYRUN_JOBS' processes beside the rank),
+    each predicted peak held within DRYRUN_RTOL of the measured
+    ``max_memory_allocated``; (c) each kernel's torch.library form on the
+    card (``phase_dryrun_ops``).  The fake group is process-global, hence
+    the processes."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.mesh import spawn_local
+
+    t0 = time.perf_counter()
+    ops_rows = phase_dryrun_ops(torch, ops, ref)
+    ops_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    (OUT / "dryrun").mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    jobs = list(DRYRUN_JOBS)
+    procs = {job: subprocess.Popen(
+        [sys.executable, "-c", f"import chip_smoke; chip_smoke.dryrun_child({job!r}, "
+         f"{str(OUT / 'dryrun' / (job + '.json'))!r})"],
+        cwd=str(ROOT), env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for job in jobs}
+    try:
+        t1 = time.perf_counter()
+        measured = spawn_local(dryrun_measure_rank, 1, backend="nccl", timeout_s=400)[0]
+        measure_s = time.perf_counter() - t1
+        for job, p in procs.items():
+            text, _ = p.communicate(timeout=400)
+            (OUT / "dryrun" / f"{job}.log").write_text(text)
+            if p.returncode != 0:
+                raise AssertionError(f"[dryrun] {job} failed:\n{text[-3000:]}")
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    res = {job: json.loads((OUT / "dryrun" / f"{job}.json").read_text()) for job in jobs}
+    log(f"[dryrun] seconds: (c) {ops_s:.1f}, the real runs' rank {measure_s:.1f}, the fake "
+        f"processes " + ", ".join(f"{j} {r['_s']['total']:.1f} (import {r['_s']['import']:.1f})"
+                                   for j, r in res.items()))
+    if any(any(r["_launches"].values()) for r in res.values()):
+        raise AssertionError(f"[dryrun] a kernel launched under the dry run: {res}")
+    full = {}
+    predicted = {}
+    for job, r in res.items():
+        cells = {k: v for k, v in r.items() if not k.startswith("_")}
+        if job.startswith("predict"):
+            predicted.update(cells)
+            continue
+        for key, rec in cells.items():
+            ma = rec["memory_analysis"]
+            log(f"[dryrun] (a) {key} on {rec['devices']} ranks {rec['mesh']}: per device "
+                f"arguments {ma['argument_size_in_bytes'] / 1e9:.3f} GB, peak "
+                f"{rec['peak_bytes'] / 1e9:.3f} GB (fits 80 GB: {rec['fits']}), collectives "
+                f"{rec['collective_bytes_per_device'] / 1e9:.3f} GB {rec['collectives']}, "
+                f"flops {rec['cost_analysis']['flops']:.4e}; traced in {rec['compile_s']} s "
+                f"(built and placed in {rec['lower_s']} s) (a prediction for {card})")
+            full[key] = rec
+    pairs = {}
+    for key, pred in predicted.items():
+        m = measured[key]
+        gap = (pred["peak_bytes"] - m["measured_peak"]) / m["measured_peak"]
+        pairs[key] = {"predicted_peak": pred["peak_bytes"], **m, "gap": gap,
+                      "predicted_args": pred["memory_analysis"]["argument_size_in_bytes"],
+                      "trace_s": pred["compile_s"]}
+        log(f"[dryrun] (b) {key}: predicted peak {pred['peak_bytes'] / 2**30:.3f} GiB "
+            f"(arguments {pred['memory_analysis']['argument_size_in_bytes'] / 2**30:.3f}), "
+            f"measured max_memory_allocated {m['measured_peak'] / 2**30:.3f} GiB (arguments "
+            f"{m['args_allocated'] / 2**30:.3f}), gap {gap * 100:+.2f}% (limit "
+            f"{DRYRUN_RTOL * 100:.0f}%); run {m['run_s']:.2f} s, launches "
+            f"{ {k: v for k, v in m['launches'].items() if v} }")
+        if not (pred["peak_bytes"] >= 10e9 and abs(gap) <= DRYRUN_RTOL and m["finite"]):
+            raise AssertionError(f"[dryrun] {key}: predicted {pred['peak_bytes']} vs measured "
+                                 f"{m['measured_peak']} (gap {gap:+.3f}), finite {m['finite']}")
+    if len(full) != len(DRYRUN_FULL) or len(pairs) != len(DRYRUN_CARD):
+        raise AssertionError(f"[dryrun] records of {sorted(full)} and {sorted(pairs)}")
+    return {"full": full, "card": pairs, "ops": ops_rows,
+            "seconds": {"ops": ops_s, "measure": measure_s,
+                        **{j: r["_s"] for j, r in res.items()}}}
+
+
 def main() -> int:
     # set before the first CUDA allocation: [refresh-ec] holds ~68 GiB of
     # live stacks on an 80 GB card, and without expandable segments the
@@ -3936,6 +4220,9 @@ def main() -> int:
     shard_2rank = timed("shard-2rank", phase_shard_2rank, torch, card)
     park = timed("park", phase_park, torch, card)
     serve_mesh = timed("serve-mesh", phase_serve_mesh, torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    dryrun = timed("dryrun", phase_dryrun, torch, card)
 
     f128 = next(r for r in flash if r["S"] == 128 and r["softcap"] is None)
     bg = next(r for r in bma if r["mode"] == "probs" and r["T"] == 0.0)
@@ -4019,6 +4306,7 @@ def main() -> int:
                                                   "codec": codec, "shard": shard,
                                                   "shard_2rank": shard_2rank, "park": park,
                                                   "serve_mesh": serve_mesh,
+                                                  "dryrun": dryrun,
                                                   "phase_s": phase_s},
                                                  indent=1, default=str))
     print(json.dumps({"kernels": kernels}))

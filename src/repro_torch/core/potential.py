@@ -55,11 +55,25 @@ def value_and_grad(fn: Callable, has_aux: bool = False) -> Callable:
         leaves = [x.detach().requires_grad_(True) for x in tree_leaves(params)]
         out = fn(tree_unflatten(params, leaves), *args)
         value = out[0] if has_aux else out
+        if _is_dtensor(value):
+            from repro_torch.models.spmd import _moved
+
+            # a DTensor param's gradient is brought to its layout as soon as
+            # it is complete (FSDP's reduce-scatter after the gather at use)
+            for x in leaves:
+                x.register_hook(lambda g, pl=x.placements: _moved(g, pl))
+            value = value.full_tensor()
         grads = torch.autograd.grad(value, leaves)
         out = (value.detach(), out[1]) if has_aux else value.detach()
         return out, tree_unflatten(params, list(grads))
 
     return vag
+
+
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
 
 
 def make_potential(nll_fn: Callable, n_data: int, prior: Prior | None = None) -> Potential:

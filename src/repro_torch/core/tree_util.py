@@ -62,12 +62,37 @@ def global_norm(a):
     return torch.sqrt(tree_dot(a, a))
 
 
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+def _dtensor_normal(key: int, index: int, x, dtype):
+    """Standard normals laid out like the DTensor ``x``: each rank draws its
+    block from a generator keyed by ``key``, the leaf ``index`` and the
+    block's coordinates on the sharded mesh dims, so replicas of a block
+    draw the same numbers and distinct blocks independent ones."""
+    from repro_torch.distributed.sharding import as_dtensor
+
+    k = rnglib.fold_in(key, index)
+    for i, (c, p) in enumerate(zip(x.device_mesh.get_coordinate(), x.placements)):
+        if p.is_shard():
+            k = rnglib.fold_in(rnglib.fold_in(k, i), c)
+    loc = x.to_local()
+    n = torch.randn(loc.shape, generator=rnglib.generator(k, loc.device), dtype=dtype,
+                    device=loc.device)
+    return as_dtensor(n, x.placements, x.device_mesh, tuple(x.shape))
+
+
 def tree_random_normal(generator: torch.Generator, target, dtype=None):
     """A standard normal draw per leaf of ``target`` (shape-matched), taken
-    from ``generator`` leaf after leaf in flatten order."""
+    from ``generator`` leaf after leaf in flatten order (DTensor leaves:
+    per block, keyed by the generator's seed)."""
     return tree_unflatten(target, [
-        torch.randn(x.shape, generator=generator, dtype=dtype or x.dtype, device=x.device)
-        for x in tree_leaves(target)
+        _dtensor_normal(generator.initial_seed(), i, x, dtype or x.dtype) if _is_dtensor(x)
+        else torch.randn(x.shape, generator=generator, dtype=dtype or x.dtype, device=x.device)
+        for i, x in enumerate(tree_leaves(target))
     ])
 
 
@@ -111,6 +136,10 @@ def leaf_normals(given, key, target, offset=None):
         for x in leaves:
             yield _per_chain_leaf(gens, x, torch.float32)
         return
+    if _is_dtensor(leaves[0]):
+        for i, x in enumerate(leaves):
+            yield _dtensor_normal(key, i, x, torch.float32)
+        return
     gen = rnglib.generator(key, leaves[0].device)
     for x in leaves:
         yield torch.randn(x.shape, generator=gen, dtype=torch.float32, device=x.device)
@@ -145,10 +174,10 @@ def _flat_f32(leaves):
     """The 1-D f32 tensor of which ``leaves`` are consecutive contiguous
     views, in order, or None."""
     first = leaves[0]
-    ptr, off = first.untyped_storage().data_ptr(), first.storage_offset()
+    st, off = first.untyped_storage()._cdata, first.storage_offset()
     for x in leaves:
         if (x.dtype != torch.float32 or not x.is_contiguous()
-                or x.untyped_storage().data_ptr() != ptr or x.storage_offset() != off):
+                or x.untyped_storage()._cdata != st or x.storage_offset() != off):
             return None
         off += x.numel()
     return torch.as_strided(first, (off - first.storage_offset(),), (1,))

@@ -6,6 +6,13 @@ is no fallback from one to the other.
 Each wrapper adds one to its entry in ``launches`` where it launches its
 kernel, and nowhere else, so a run can show that its main path went
 through the kernels.
+
+Each kernel's launch is a ``torch.library`` custom op (``repro_torch::<name>``,
+``OPS``): on the card the wrappers call it, and its implementation
+launches the kernel.  Its fake implementation gives the kernel's output
+shapes, so fake tensors (the dry run, ``FakeTensorMode``) trace through
+every wrapper, and meta tensors through the ops, with no launch and no
+allocation.  The plain versions run on the CPU as before.
 """
 from __future__ import annotations
 
@@ -29,9 +36,21 @@ def reset_launches() -> None:
         launches[name] = 0
 
 
+def _abstract(*tensors) -> bool:
+    """True for fake tensors (``FakeTensorMode``): the custom op's fake
+    implementation then stands for the kernel."""
+    from torch._subclasses.fake_tensor import FakeTensor
+
+    return any(isinstance(t, FakeTensor) for t in tensors)
+
+
 def _on_card(*tensors) -> bool:
-    """True for CUDA tensors, False for CPU tensors; raises on a mix of
-    devices or any other device type."""
+    """True for CUDA tensors and for fake tensors (the kernel's custom op
+    then runs its fake form), False for CPU tensors; raises on a mix of
+    devices or any other device type (meta tensors reach the custom ops,
+    ``torch.ops.repro_torch.*``, directly)."""
+    if _abstract(*tensors):
+        return True
     devices = {t.device for t in tensors}
     if len(devices) != 1:
         raise ValueError(f"tensors on different devices: {sorted(map(str, devices))}")
@@ -108,11 +127,23 @@ def flash_attention(q, k, v, *, causal=True, window=None, softcap=None, scale=No
     if not on_card:
         out = ref.attention(q, k, v, causal=causal, window=window, softcap=softcap, scale=scale)
     else:
-        out = torch.empty_like(q)
-        _binding("flash_attention").launch(q, k, v, out, causal=causal, window=window,
-                                           softcap=softcap, scale=scale)
-        launches["flash_attention"] += 1
+        out = torch.ops.repro_torch.flash_attention(q, k, v, causal, window, softcap, scale)
     return out[..., :d] if dp != d else out
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+              window: int | None, softcap: float | None, scale: float) -> torch.Tensor:
+    out = torch.empty_like(q)
+    _binding("flash_attention").launch(q, k, v, out, causal=causal, window=window,
+                                       softcap=softcap, scale=scale)
+    launches["flash_attention"] += 1
+    return out
+
+
+@_flash_op.register_fake
+def _(q, k, v, causal, window, softcap, scale):
+    return torch.empty_like(q)
 
 
 # --- paged attention (decode) ------------------------------------------------
@@ -148,11 +179,25 @@ def paged_attention(q, k_pages, v_pages, block_tables, context_lens,
         out = ref.paged_attention(q, k_pages, v_pages, block_tables, context_lens,
                                   scale=scale, window=window, softcap=softcap)
     else:
-        out = torch.empty_like(q)
-        _binding("paged_attention").launch(q, k_pages, v_pages, block_tables, context_lens,
-                                           out, scale=scale, window=window, softcap=softcap)
-        launches["paged_attention"] += 1
+        out = torch.ops.repro_torch.paged_attention(q, k_pages, v_pages, block_tables,
+                                                    context_lens, scale, window, softcap)
     return out[..., :d] if dp != d else out
+
+
+@torch.library.custom_op("repro_torch::paged_attention", mutates_args=())
+def _paged_op(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
+              block_tables: torch.Tensor, context_lens: torch.Tensor, scale: float,
+              window: int | None, softcap: float | None) -> torch.Tensor:
+    out = torch.empty_like(q)
+    _binding("paged_attention").launch(q, k_pages, v_pages, block_tables, context_lens, out,
+                                       scale=scale, window=window, softcap=softcap)
+    launches["paged_attention"] += 1
+    return out
+
+
+@_paged_op.register_fake
+def _(q, k_pages, v_pages, block_tables, context_lens, scale, window, softcap):
+    return torch.empty_like(q)
 
 
 # --- RG-LRU scan --------------------------------------------------------------
@@ -165,6 +210,11 @@ def _scan_fwd(a, x, h0, on_card):
         return ref.rglru_scan(a, x, h0)
     if not (a.dtype == x.dtype and a.dtype in _ATTN_DTYPES):
         a, x = a.float(), x.float()
+    return torch.ops.repro_torch.rglru_scan(a, x, h0)
+
+
+@torch.library.custom_op("repro_torch::rglru_scan", mutates_args=())
+def _scan_op(a: torch.Tensor, x: torch.Tensor, h0: torch.Tensor | None) -> torch.Tensor:
     out = torch.empty(a.shape, dtype=torch.float32, device=a.device)
     if out.numel() == 0:
         return out
@@ -175,21 +225,39 @@ def _scan_fwd(a, x, h0, on_card):
     return out
 
 
+@_scan_op.register_fake
+def _(a, x, h0):
+    return torch.empty(a.shape, dtype=torch.float32, device=a.device)
+
+
 def _scan_bwd(a, h, dh, h0, on_card):
     """(da, dx, dh0) f32, dh0 None without h0: the plain version on the
     CPU, the backward kernel on CUDA (a and dh cast to f32)."""
     if not on_card:
         return ref.rglru_scan_bwd(a, h, dh, h0)
     a, dh = a.float().contiguous(), dh.float().contiguous()
+    da, dx, dh0 = torch.ops.repro_torch.rglru_scan_bwd(a, h, dh, h0)
+    return da, dx, dh0 if h0 is not None else None
+
+
+@torch.library.custom_op("repro_torch::rglru_scan_bwd", mutates_args=())
+def _scan_bwd_op(a: torch.Tensor, h: torch.Tensor, dh: torch.Tensor,
+                 h0: torch.Tensor | None) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     da, dx = torch.empty_like(a), torch.empty_like(a)
-    dh0 = torch.empty_like(h0) if h0 is not None else None
+    dh0 = torch.empty_like(h0) if h0 is not None else a.new_empty((0,))
     if a.numel() == 0:
-        return da, dx, dh0.zero_() if dh0 is not None else None
+        return da, dx, dh0.zero_()
     from . import rglru as _rg
 
-    _rg.launch_bwd(a, h, dh, h0, da, dx, dh0)
+    _rg.launch_bwd(a, h, dh, h0, da, dx, dh0 if h0 is not None else None)
     launches["rglru_scan_bwd"] += 1
     return da, dx, dh0
+
+
+@_scan_bwd_op.register_fake
+def _(a, h, dh, h0):
+    return (torch.empty_like(a), torch.empty_like(a),
+            torch.empty_like(h0) if h0 is not None else a.new_empty((0,)))
 
 
 class _RGLRUScan(torch.autograd.Function):
@@ -288,10 +356,25 @@ def fused_bma_select(logits, generator=None, *, mode="probs", temperature=0.0, t
 
     if K > _bs.MAX_K:
         raise ValueError(f"kernel takes K <= {_bs.MAX_K} members, got {K}")
-    tok, logp = _bs.launch(logits, gumbel, mode=mode, temperature=float(temperature),
-                           top_k=int(top_k))
+    return torch.ops.repro_torch.bma_select(logits, gumbel, mode, float(temperature),
+                                            int(top_k))
+
+
+@torch.library.custom_op("repro_torch::bma_select", mutates_args=())
+def _bma_op(logits: torch.Tensor, gumbel: torch.Tensor | None, mode: str, temperature: float,
+            top_k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    from . import bma_select as _bs
+
+    tok, logp = _bs.launch(logits, gumbel, mode=mode, temperature=temperature, top_k=top_k)
     launches["bma_select"] += 1
     return tok, logp
+
+
+@_bma_op.register_fake
+def _(logits, gumbel, mode, temperature, top_k):
+    _, S, V = logits.shape
+    return (logits.new_empty((S,), dtype=torch.int32),
+            logits.new_empty((S, V), dtype=torch.float32))
 
 
 # --- fused EC-SGHMC update ---------------------------------------------------
@@ -382,16 +465,34 @@ def fused_ec_update(theta, p, g, c_tilde, *, eps, friction, mass, alpha, sigma_p
         t_new, p_new = ref.fused_ec_update(theta, p, g, c_tilde, b1, b2, scalars=scalars,
                                            stochastic_round=stochastic_round)
         return t_new, (p_out.copy_(p_new) if p_out is not None else p_new)
+    p_new = p_out if p_out is not None else torch.empty_like(p)
+    seed = 0 if seed is None else int(seed)
+    t_new = torch.ops.repro_torch.fused_ec_update(
+        theta, p, g, c_tilde, b1, b2, p_new, K, N, seed >> 32, seed & 0xFFFFFFFF, int(leaf),
+        int(step), [float(v) for v in scalars], stochastic_round, int(chain_offset))
+    return t_new, p_new
+
+
+@torch.library.custom_op("repro_torch::fused_ec_update", mutates_args=("p_new",))
+def _fused_ec_op(theta: torch.Tensor, p: torch.Tensor, g: torch.Tensor, c_tilde: torch.Tensor,
+                 b1: torch.Tensor | None, b2: torch.Tensor | None, p_new: torch.Tensor, K: int,
+                 N: int, seed_hi: int, seed_lo: int, leaf: int, step: int,
+                 scalars: list[float], stochastic_round: bool,
+                 chain_offset: int) -> torch.Tensor:
     from . import fused_ecsghmc as _fe
 
     t_new = torch.empty_like(theta)
-    p_new = p_out if p_out is not None else torch.empty_like(p)
     _fe.launch(theta, p, g, c_tilde, b1, b2, t_new, p_new, K=K, N=N,
-               seed=0 if seed is None else int(seed), leaf=int(leaf), step=int(step),
-               scalars=scalars, stochastic_round=stochastic_round,
-               chain_offset=int(chain_offset))
+               seed=(seed_hi << 32) | seed_lo, leaf=leaf, step=step, scalars=tuple(scalars),
+               stochastic_round=stochastic_round, chain_offset=chain_offset)
     launches["fused_ec_update"] += 1
-    return t_new, p_new
+    return t_new
+
+
+@_fused_ec_op.register_fake
+def _(theta, p, g, c_tilde, b1, b2, p_new, K, N, seed_hi, seed_lo, leaf, step, scalars,
+      stochastic_round, chain_offset):
+    return torch.empty_like(theta)
 
 
 def fused_precond_ec_update(theta, p, g, c_tilde, minv, *, eps, friction, alpha, sigma_p,
@@ -416,15 +517,38 @@ def fused_precond_ec_update(theta, p, g, c_tilde, minv, *, eps, friction, alpha,
                                                    scalars=scalars,
                                                    stochastic_round=stochastic_round)
         return t_new, (p_out.copy_(p_new) if p_out is not None else p_new)
+    p_new = p_out if p_out is not None else torch.empty_like(p)
+    seed = 0 if seed is None else int(seed)
+    t_new = torch.ops.repro_torch.fused_precond_ec_update(
+        theta, p, g, c_tilde, minv, b1, b2, p_new, K, N, seed >> 32, seed & 0xFFFFFFFF,
+        int(leaf), int(step), [float(v) for v in scalars], stochastic_round)
+    return t_new, p_new
+
+
+@torch.library.custom_op("repro_torch::fused_precond_ec_update", mutates_args=("p_new",))
+def _fused_precond_op(theta: torch.Tensor, p: torch.Tensor, g: torch.Tensor,
+                      c_tilde: torch.Tensor, minv: torch.Tensor, b1: torch.Tensor | None,
+                      b2: torch.Tensor | None, p_new: torch.Tensor, K: int, N: int,
+                      seed_hi: int, seed_lo: int, leaf: int, step: int, scalars: list[float],
+                      stochastic_round: bool) -> torch.Tensor:
     from . import fused_ecsghmc as _fe
 
     t_new = torch.empty_like(theta)
-    p_new = p_out if p_out is not None else torch.empty_like(p)
     _fe.launch_precond(theta, p, g, minv, c_tilde, b1, b2, t_new, p_new, K=K, N=N,
-                       seed=0 if seed is None else int(seed), leaf=int(leaf), step=int(step),
-                       scalars=scalars, stochastic_round=stochastic_round)
+                       seed=(seed_hi << 32) | seed_lo, leaf=leaf, step=step,
+                       scalars=tuple(scalars), stochastic_round=stochastic_round)
     launches["fused_precond_ec_update"] += 1
-    return t_new, p_new
+    return t_new
+
+
+@_fused_precond_op.register_fake
+def _(theta, p, g, c_tilde, minv, b1, b2, p_new, K, N, seed_hi, seed_lo, leaf, step, scalars,
+      stochastic_round):
+    return torch.empty_like(theta)
+
+
+OPS = ("flash_attention", "paged_attention", "bma_select", "fused_ec_update",
+       "fused_precond_ec_update", "rglru_scan", "rglru_scan_bwd")  # torch.ops.repro_torch.*
 
 
 def fused_ec_update_tree(params, momentum, grads, center_stale, *, bits=None, seed=None,

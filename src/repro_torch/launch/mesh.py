@@ -18,11 +18,17 @@
   (so a rank that dies does not hang its peers); a rank's exception is
   raised in the parent.
 
+* ``make_production_mesh``, ``make_train_mesh``, ``make_serve_mesh`` and
+  ``total_chains`` — the reference's 256/512-device slice meshes, with its
+  shapes, axis names and asserts, as ``DeviceMesh``es over the default
+  process group: the dry run builds them over a fake group of that many
+  ranks (``launch.dryrun``), and a size-1 mesh runs on one card.
+
 NCCL on the card (one rank per GPU), gloo on the CPU; gloo also runs
 several ranks on one card, staging the collectives' CUDA tensors through
-the host (``distributed.collectives``).  The TPU-slice meshes
-(``make_production_mesh``, ``make_train_mesh``, ``make_serve_mesh``) come
-with the dry run (ROADMAP item 15).
+the host (``distributed.collectives``).  A ``DeviceMesh`` spans its group,
+so each mesh here raises ``ValueError`` unless the world size equals its
+size (the reference may take a prefix of its devices).
 """
 from __future__ import annotations
 
@@ -109,6 +115,73 @@ def make_engine_mesh(num_member_shards: int, num_slot_shards: int | None = None,
                          f"not {num_member_shards} x {num_slot_shards}")
     device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
     return init_device_mesh(device_type, (m, s), mesh_dim_names=tuple(axes))
+
+
+def _mesh_device_type() -> str:
+    """The device a mesh over the default group holds: the card under
+    NCCL, the CPU under gloo; under the dry run's fake group, the card
+    where there is one (its fake tensors then take the card's paths)."""
+    import torch
+    import torch.distributed as dist
+
+    backend = dist.get_backend()
+    if backend == "fake":
+        return "cuda" if torch.cuda.is_available() else "cpu"
+    return "cuda" if backend == "nccl" else "cpu"
+
+
+def _world_mesh(shape: tuple, axes: tuple):
+    """A ``DeviceMesh`` of ``shape`` over every rank of the default group."""
+    import math
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    world = dist.get_world_size()
+    if math.prod(shape) != world:
+        raise ValueError(f"a {shape} mesh needs {math.prod(shape)} ranks; the process group "
+                         f"has {world}")
+    return init_device_mesh(_mesh_device_type(), tuple(shape), mesh_dim_names=tuple(axes))
+
+
+def make_production_mesh(*, multi_pod: bool = False, size: int = 16):
+    """(data, model) = (size, size), or (pod, data, model) = (2, size, size)."""
+    shape = (2, size, size) if multi_pod else (size, size)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return _world_mesh(shape, axes)
+
+
+def make_train_mesh(num_chains: int = 1, *, multi_pod: bool = False, size: int = 16,
+                    tp: int | None = None):
+    """The production mesh's ranks with a chain axis of size ``num_chains``
+    factored out of the per-pod data axis: (chain, size*size / (chain*tp),
+    tp), ``tp`` defaulting to ``size``, with a leading pod axis of 2 when
+    ``multi_pod``."""
+    chips = size * size
+    tp = size if tp is None else tp
+    assert chips % (num_chains * tp) == 0, (num_chains, tp)
+    data = chips // (num_chains * tp)
+    if multi_pod:
+        return _world_mesh((2, num_chains, data, tp), ("pod", "chain", "data", "model"))
+    return _world_mesh((num_chains, data, tp), ("chain", "data", "model"))
+
+
+def make_serve_mesh(*, multi_pod: bool = False, size: int = 16, tp: int | None = None):
+    """The production mesh's ranks with a re-balanced (data, model) split;
+    ``tp=None`` is the production mesh."""
+    if tp is None:
+        return make_production_mesh(multi_pod=multi_pod, size=size)
+    chips = size * size
+    assert chips % tp == 0
+    shape = (2, chips // tp, tp) if multi_pod else (chips // tp, tp)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return _world_mesh(shape, axes)
+
+
+def total_chains(mesh, num_chains: int) -> int:
+    """Total K across pods (multi-pod meshes double the chain count)."""
+    names = tuple(mesh.mesh_dim_names or ())
+    return num_chains * (mesh.shape[names.index("pod")] if "pod" in names else 1)
 
 
 def _child(fn, rank, world_size, init_file, backend, timeout_s, args, results):

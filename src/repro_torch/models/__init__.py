@@ -1,6 +1,6 @@
 from . import encdec, mlp, resnet
-from .common import (LayerKind, ModelConfig, ParamSpec, active_params, init_params, num_params,
-                     tree_leaves, tree_map)
+from .common import (LayerKind, ModelConfig, ParamSpec, abstract_params, active_params,
+                     cast_specs, init_params, num_params, param_axes, tree_leaves, tree_map)
 from .registry import ModelDef, PagedDef, get_model
 
 __all__ = [
@@ -9,12 +9,15 @@ __all__ = [
     "ModelDef",
     "PagedDef",
     "ParamSpec",
+    "abstract_params",
     "active_params",
+    "cast_specs",
     "encdec",
     "get_model",
     "init_params",
     "mlp",
     "num_params",
+    "param_axes",
     "resnet",
     "tree_leaves",
     "tree_map",

@@ -3,7 +3,10 @@
 One source of truth per model: ``param_specs(cfg)`` returns a nested dict
 of :class:`ParamSpec` with the reference package's key paths and its
 stacked-layer axis, so weights cross one to one.  ``init_params``
-materialises it on a device from a ``torch.Generator``.
+materialises it on a device from a ``torch.Generator``; ``abstract_params``
+gives it as ``meta`` tensors (the dry run: no allocation) and
+``param_axes`` its logical-axis names (the sharding rules), so init,
+shapes and sharding can never drift apart.
 """
 from __future__ import annotations
 
@@ -101,6 +104,23 @@ def init_params(specs, generator: torch.Generator, device="cuda"):
     if isinstance(specs, dict):
         return {k: init_params(specs[k], generator, device) for k in sorted(specs)}
     return _materialize(specs, generator, device)
+
+
+def abstract_params(specs, dtype_override=None, device="meta"):
+    """The spec tree as tensors on the ``meta`` device (no storage): the
+    reference's ``ShapeDtypeStruct`` tree, for the dry run."""
+    return tree_map(lambda s: torch.empty(s.shape, dtype=dtype_override or s.dtype,
+                                          device=device), specs)
+
+
+def param_axes(specs):
+    """The logical-axis names per dim of every leaf (the sharding rules'
+    input)."""
+    return tree_map(lambda s: s.axes, specs)
+
+
+def cast_specs(specs, dtype):
+    return tree_map(lambda s: dataclasses.replace(s, dtype=dtype), specs)
 
 
 # ---------------------------------------------------------------------------

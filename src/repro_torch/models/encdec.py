@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from . import layers as L
+from . import spmd
 from .common import ModelConfig, ParamSpec, tree_map
 from .transformer import _norm, stack_specs
 
@@ -70,7 +71,7 @@ def _layers(stack, n: int):
     """The n layers of a stacked param tree, each leaf unbound once (so a
     backward pass writes each leaf's gradient in one stack)."""
     per = tree_map(lambda a: a.unbind(0), stack)
-    return [tree_map(lambda a: a[i], per) for i in range(n)]
+    return [spmd.gathered(tree_map(lambda a: a[i], per)) for i in range(n)]
 
 
 def _sinusoid(T: int, D: int, device):
@@ -138,7 +139,11 @@ def _decoder(cfg, params, tokens, enc_out, cache=None):
 
 def train_nll(cfg: ModelConfig, params, batch):
     """batch: frame_embeds (B, T_enc, D), tokens and labels (B, S), optional
-    mask.  Returns (sum_nll, token_count)."""
+    mask.  Returns (sum_nll, token_count).  On DTensors (the family runs
+    data-parallel) each rank runs its rows with the weights whole."""
+    if spmd.is_dtensor(batch["tokens"]):
+        return spmd.rows_local(lambda p_, b_: train_nll(cfg, p_, b_), batch["tokens"], params,
+                               batch)
     enc_out = encode(cfg, params, batch["frame_embeds"])
     x = _decoder(cfg, params, batch["tokens"], enc_out)
     return L.chunked_xent(cfg, params["embed"], x, batch["labels"], batch.get("mask"))
@@ -160,13 +165,27 @@ def make_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype, device="cuda")
     }
 
 
-def prefill(cfg: ModelConfig, params, batch, max_seq: int, cache_dtype=None):
+def cache_axes(cfg: ModelConfig):
+    """Logical-axis tree matching ``make_cache`` (the reference's)."""
+    kv = (None, "batch", "kvseq", "kv_heads", None)
+    return {"self_k": kv, "self_v": kv, "cross_k": kv, "cross_v": kv, "t": ()}
+
+
+def prefill(cfg: ModelConfig, params, batch, max_seq: int, cache_dtype=None, cache=None):
     """Encode the frames and run the decoder prompt, building the self and
-    cross caches; returns (last_token_logits (B, 1, V), cache)."""
+    cross caches (filling ``cache`` when given, an all-zero cache of
+    ``make_cache``'s structure); returns (last_token_logits (B, 1, V),
+    cache)."""
+    if spmd.is_dtensor(batch["tokens"]):
+        logits = spmd.rows_local(
+            lambda p_, b_, c_: prefill(cfg, p_, b_, max_seq, cache_dtype, cache=c_)[0],
+            batch["tokens"], params, batch, states=(cache,))
+        return logits, cache
     enc_out = encode(cfg, params, batch["frame_embeds"])
     tokens = batch["tokens"]
     B, S = tokens.shape
-    cache = make_cache(cfg, B, max_seq, cache_dtype or cfg.compute_dtype, tokens.device)
+    if cache is None:
+        cache = make_cache(cfg, B, max_seq, cache_dtype or cfg.compute_dtype, tokens.device)
     x = _decoder(cfg, params, tokens, enc_out, cache)
     cache["t"] = torch.tensor(S, dtype=torch.int32, device=tokens.device)
     return L.final_logits(cfg, params["embed"], x[:, -1:]), cache
@@ -177,12 +196,16 @@ def decode_step(cfg: ModelConfig, params, cache, tokens):
     V), cache); the self k/v are written in place (at the last slot when
     the cache is full, as the reference's dynamic update clamps), and
     ``t`` is replaced by t + 1."""
+    if spmd.is_dtensor(tokens):
+        logits = spmd.rows_local(lambda p_, tok, c_: decode_step(cfg, p_, c_, tok)[0], tokens,
+                                 params, tokens, states=(cache,))
+        return logits, cache
     cd = cfg.compute_dtype
     t = cache["t"]
     B = tokens.shape[0]
     dh = cfg.head_dim
     x = L.embed(cfg, params["embed"], tokens)
-    x = x + params["dec_pos"][t.long()][None, None].to(cd)
+    x = x + params["dec_pos"].index_select(0, t.long().reshape(1))[None].to(cd)
     S_max = cache["self_k"].shape[2]
     slot = t.long().clamp(max=S_max - 1).reshape(1)
     valid = torch.arange(S_max, device=x.device) <= t

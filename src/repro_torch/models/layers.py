@@ -16,6 +16,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from . import spmd
 from .common import ModelConfig, ParamSpec
 
 NEG_INF = -1e30
@@ -26,6 +27,7 @@ NEG_INF = -1e30
 
 
 def rms_norm(x, w, eps: float, offset: float = 0.0):
+    w = spmd.gathered(w)
     dt = x.dtype
     x32 = x.float()
     inv = torch.rsqrt(torch.mean(x32 * x32, dim=-1, keepdim=True) + eps)
@@ -145,6 +147,8 @@ def attention(
     optionally sliding-window (q_pos - k_pos < window).  With
     ``use_flash_kernel`` (and the reference's gate ``S % min(128, S) == 0``)
     it runs through the flash kernel."""
+    if spmd.is_dtensor(x):
+        return _attention_dt(cfg, p, x, positions, window, q_chunk, causal)
     cd = cfg.compute_dtype
     B, S, _ = x.shape
     q, k, v = _qk(cfg, p, x, positions)
@@ -182,6 +186,18 @@ def attention(
     return _out_proj(cfg, p, out.reshape(B, S, cfg.num_heads, cfg.head_dim))
 
 
+def _attention_dt(cfg: ModelConfig, p, x, positions, window, q_chunk, causal):
+    """``attention`` on DTensors: each rank runs the plain attention on its
+    rows and its heads (split over ``model`` where the query weights are),
+    and the output projection leaves a partial sum over ``model``."""
+    plan = spmd.heads_plan(cfg, x, spmd.split_on(p["wk"], 1), spmd.split_on(p["wq"], 1))
+    split = spmd.sum_dims(x, plan[4])
+    local = attention(cfg.replace(num_heads=plan[0], num_kv_heads=plan[1]),
+                      spmd.attn_weights(p, plan, split), spmd.local_rows(x, x, partial=split),
+                      spmd.local_rows(positions, x, positions.ndim - 2), window, q_chunk, causal)
+    return spmd.out_rows(local, x, plan[4])
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, window: Optional[int], dtype, device,
                lead: tuple = ()):
     """KV cache for one attention layer, with leading dims ``lead`` (the
@@ -201,6 +217,8 @@ def decode_attention(cfg: ModelConfig, p, x, cache, t, window: Optional[int]):
     differ.  Writes this step's k/v into ``cache`` IN PLACE (a full cache
     clamps the write slot at L-1, as the reference's dynamic update does).
     Returns (out (B, 1, D), cache)."""
+    if spmd.is_dtensor(x):
+        return _decode_attention_dt(cfg, p, x, cache, t, window)
     cd = cfg.compute_dtype
     B = x.shape[0]
     t = torch.as_tensor(t, device=x.device).long()
@@ -225,6 +243,47 @@ def decode_attention(cfg: ModelConfig, p, x, cache, t, window: Optional[int]):
     out = torch.einsum("bhgqt,bthk->bqhgk", w, cache["v"].to(cd))
     out = out.reshape(B, 1, cfg.num_heads, cfg.head_dim)
     return _out_proj(cfg, p, out), cache
+
+
+def _decode_attention_dt(cfg: ModelConfig, p, x, cache, t, window):
+    """``decode_attention`` on DTensors.  A cache split over ``model`` by kv
+    heads: each rank decodes its rows and kv heads (with their query
+    groups) as plain torch, writing its own cache block in place, and the
+    output is a partial sum over ``model``.  A cache split by positions
+    (too few kv heads): every rank computes every head, writes the new k/v
+    into the block that holds the slot, and attends over its rows of the
+    cache gathered along the positions."""
+    mi = spmd.model_axis(x)[0]
+    pl = cache["k"].placements[mi] if mi is not None else None
+    by_pos = pl is not None and pl.is_shard() and pl.dim == 1
+    plan = spmd.heads_plan(cfg, x, pl is not None and pl.is_shard() and pl.dim == 2, False)
+    cfg_l = cfg.replace(num_heads=plan[0], num_kv_heads=plan[1])
+    p_l = spmd.attn_weights(p, plan)
+    x_l = spmd.local_rows(x, x)
+    t_l = spmd.local_rows(t, x) if t.ndim else spmd.to_layout(t, x.device_mesh, {})
+    if not by_pos:  # the rank's kv heads of its rows, whole along the positions
+        c_l = spmd.state_rows(cache, x, dims=(2,))
+        out, _ = decode_attention(cfg_l, p_l, x_l, c_l, t_l, window)
+        spmd.write_back(cache, c_l, x, dims=(2,))
+        return spmd.out_rows(out, x, plan[4]), cache
+    B = x_l.shape[0]
+    tb = t_l.long().expand(B) if t_l.ndim == 0 else t_l.long()
+    pos = tb[:, None]
+    if cfg.mrope_sections is not None:
+        pos = pos[None].expand(3, B, 1)
+    _, k, v = _qk(cfg_l, p_l, x_l, pos)
+    L = cache["k"].shape[1]
+    slot = tb % L if window else tb.clamp(max=L - 1)
+    for name, new in (("k", k), ("v", v)):  # the block that holds the slot writes it
+        loc = cache[name].to_local()
+        rel = slot - spmd.offset(cache[name], 1)
+        inside = (rel >= 0) & (rel < loc.shape[1])
+        rows = torch.arange(loc.shape[0], device=loc.device)
+        at = rel.clamp(0, loc.shape[1] - 1)
+        loc[rows, at] = torch.where(inside[:, None, None], new[:, 0].to(loc.dtype), loc[rows, at])
+    full = {name: spmd.state_rows(cache[name], x) for name in ("k", "v")}
+    out, _ = decode_attention(cfg_l, p_l, x_l, full, t_l, window)
+    return spmd.out_rows(out, x, plan[4]), cache
 
 
 def paged_decode_attention(cfg: ModelConfig, p, x, pool, block_tables, context_lens, write_block):
@@ -299,6 +358,13 @@ def mlp_specs(cfg: ModelConfig, d_ff=None) -> dict:
 
 
 def mlp(cfg: ModelConfig, p, x):
+    if spmd.is_dtensor(x):  # hidden units split over ``model`` where the weights are
+        split = spmd.split_on(p["w_up"], 1)
+        f = p["w_up"].shape[1] // (spmd.model_axis(x)[1] if split else 1)
+        lo = spmd.model_axis(x)[2] * f if split else 0
+        dims = spmd.sum_dims(x, split)
+        p_l = {k: spmd.part(w, 0 if k == "w_down" else 1, lo, f, dims) for k, w in p.items()}
+        return spmd.out_rows(mlp(cfg, p_l, spmd.local_rows(x, x, partial=dims)), x, split)
     cd = cfg.compute_dtype
     act = _ACTS[cfg.act]
     xc = x.to(cd)
@@ -327,7 +393,11 @@ def embed_specs(cfg: ModelConfig) -> dict:
 
 
 def embed(cfg: ModelConfig, p, tokens):
-    x = p["table"][tokens.long()].to(cfg.compute_dtype)
+    p = spmd.gathered(p)
+    if spmd.is_dtensor(p["table"]):
+        x = spmd.take_rows(p["table"], tokens.long()).to(cfg.compute_dtype)
+    else:
+        x = p["table"][tokens.long()].to(cfg.compute_dtype)
     if cfg.embed_scale == "sqrt_d":
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=cfg.compute_dtype)
     return x
@@ -344,7 +414,7 @@ def _logits_chunk(cfg: ModelConfig, p, x):
 
 def final_logits(cfg: ModelConfig, p, x_last):
     """Logits for the last position only: x_last (B, 1, D) -> (B, 1, V)."""
-    return _logits_chunk(cfg, p, x_last)
+    return _logits_chunk(cfg, spmd.gathered(p), x_last)
 
 
 def chunked_xent(cfg: ModelConfig, p, x, labels, mask=None):
@@ -353,12 +423,13 @@ def chunked_xent(cfg: ModelConfig, p, x, labels, mask=None):
     backward pass).  Returns (sum_nll, token_count) as 0-d f32 tensors."""
     B, S, D = x.shape
     C = min(cfg.xent_chunk, S)
+    p = spmd.gathered(p)
     if mask is None:
         mask = torch.ones((B, S), dtype=torch.float32, device=x.device)
     sum_nll = torch.zeros((), dtype=torch.float32, device=x.device)
     for s0 in range(0, S, C):
         logits = _logits_chunk(cfg, p, x[:, s0:s0 + C])  # (B, C, V) f32
         lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, labels[:, s0:s0 + C, None].long())[..., 0]
+        gold = spmd.take_last(logits, labels[:, s0:s0 + C].long())
         sum_nll = sum_nll + torch.sum((lse - gold) * mask[:, s0:s0 + C].float())
     return sum_nll, torch.sum(mask.float())

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from . import spmd
 from .common import ModelConfig, ParamSpec
 from .layers import _ACTS
 
@@ -41,7 +42,10 @@ def _top_k(probs, k: int):
 
 
 def moe_ffn(cfg: ModelConfig, p, x):
-    """x: (B, S, D) -> (B, S, D).  B*S must be a multiple of the group."""
+    """x: (B, S, D) -> (B, S, D).  B*S must be a multiple of the group.
+    On DTensors each rank routes its rows through every expert."""
+    if spmd.is_dtensor(x):
+        return spmd.rows_local(lambda p_, x_: moe_ffn(cfg, p_, x_), x, p, x)
     cd = cfg.compute_dtype
     B, S, D = x.shape
     E, K = cfg.moe_num_experts, cfg.moe_top_k

@@ -17,6 +17,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from . import spmd
 from .common import ModelConfig, ParamSpec
 from .layers import rms_norm
 
@@ -46,14 +47,16 @@ def rglru_specs(cfg: ModelConfig) -> dict:
     }
 
 
-def _rglru_gates(p, u):
-    """u: (..., R) conv output.  Returns (a, gated input) in f32."""
+def _rglru_gates(p, u, u_own=None):
+    """u: (..., R) conv output.  Returns (a, gated input) in f32.  With
+    ``u_own`` (a rank's channels of u, whose weights' columns ``p``
+    holds), the gates read every channel of u and gate ``u_own``."""
     r_gate = torch.sigmoid(u @ p["w_a"].to(u.dtype) + p["b_a"].to(u.dtype))
     i_gate = torch.sigmoid(u @ p["w_i"].to(u.dtype) + p["b_i"].to(u.dtype))
     log_a = -_RGLRU_C * F.softplus(p["lam"]) * r_gate.float()
     a = torch.exp(log_a)
     scale = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-12))
-    x_in = scale * (i_gate.float() * u.float())
+    x_in = scale * (i_gate.float() * (u if u_own is None else u_own).float())
     return a, x_in
 
 
@@ -63,6 +66,8 @@ def rglru_block(cfg: ModelConfig, p, x):
     recurrence and the last W-1 raw conv inputs, in x's dtype."""
     from repro_torch.kernels.ops import rglru_scan
 
+    if spmd.is_dtensor(x):
+        return _rglru_block_dt(cfg, p, x)
     cd = cfg.compute_dtype
     S = x.shape[1]
     gate = _gelu(x.to(cd) @ p["w_gate_branch"].to(cd))
@@ -74,6 +79,44 @@ def rglru_block(cfg: ModelConfig, p, x):
     h = rglru_scan(a, x_in)
     out = (gate * h.to(cd)) @ p["w_out"].to(cd)
     return out, {"h": h[:, -1], "conv": pad[:, S:S + W - 1].to(x.dtype)}
+
+
+def _rglru_block_dt(cfg: ModelConfig, p, x):
+    """``rglru_block`` on DTensors: each rank runs its rows and, where the
+    weights split the channels R over ``model``, its channels; the gates
+    read every channel of the conv output (one all-gather over ``model``),
+    the scan runs on the rank's channels and the output projection leaves
+    a partial sum over ``model``.  The state comes back split as the
+    channels are."""
+    from repro_torch.kernels.ops import rglru_scan
+
+    mesh = x.device_mesh
+    mi, m, r = spmd.model_axis(x)
+    split = spmd.split_on(p["w_x"], 1)
+    R = p["w_x"].shape[1]
+    n = R // m if split else R
+    lo = r * n if split else 0
+    dims = spmd.sum_dims(x, split)
+    own = {k: spmd.part(p[k], d, lo, n, dims) for k, d in (
+        ("w_gate_branch", 1), ("w_x", 1), ("conv_w", 1), ("conv_b", 0), ("b_a", 0), ("b_i", 0),
+        ("lam", 0), ("w_out", 0), ("w_a", 1), ("w_i", 1))}
+    cd = cfg.compute_dtype
+    x_l = spmd.local_rows(x, x, partial=dims)
+    S = x_l.shape[1]
+    gate = _gelu(x_l.to(cd) @ own["w_gate_branch"].to(cd))
+    u = x_l.to(cd) @ own["w_x"].to(cd)
+    W = own["conv_w"].shape[0]
+    pad = F.pad(u, (0, 0, W - 1, 0))
+    uc = sum(pad[:, i:i + S] * own["conv_w"][i].to(cd) for i in range(W)) + own["conv_b"].to(cd)
+    rows = spmd.row_dims(x)
+    chan = {**rows, mi: 2} if split else rows
+    uc_all = spmd.to_layout(spmd.wrap(uc, mesh, chan), mesh, rows, dims) if split else uc
+    a, x_in = _rglru_gates(own, uc_all, uc)
+    h = rglru_scan(a, x_in)
+    out = (gate * h.to(cd)) @ own["w_out"].to(cd)
+    state = {"h": spmd.wrap(h[:, -1], mesh, {**rows, mi: 1} if split else rows),
+             "conv": spmd.wrap(pad[:, S:S + W - 1].to(x.dtype), mesh, chan)}
+    return spmd.out_rows(out, x, split), state
 
 
 def rglru_init_state(cfg: ModelConfig, batch: int, dtype, device, lead: tuple = ()):
@@ -89,7 +132,11 @@ def rglru_init_state(cfg: ModelConfig, batch: int, dtype, device, lead: tuple = 
 
 def rglru_decode(cfg: ModelConfig, p, x, state):
     """x: (B, 1, D); one recurrent step.  Writes the new h and conv history
-    into ``state`` IN PLACE.  Returns (out (B, 1, D), state)."""
+    into ``state`` IN PLACE.  Returns (out (B, 1, D), state).  On DTensors
+    each rank steps its rows with the weights whole."""
+    if spmd.is_dtensor(x):
+        return spmd.rows_local(lambda p_, x_, s_: rglru_decode(cfg, p_, x_, s_)[0], x, p, x,
+                               states=(state,)), state
     cd = cfg.compute_dtype
     xt = x[:, 0].to(cd)
     gate = _gelu(xt @ p["w_gate_branch"].to(cd))
@@ -177,7 +224,13 @@ def mlstm_block(cfg: ModelConfig, p, x, state=None):
     ``mlstm_init_state`` makes it), the prompt's final state is also
     written into it in place: the recurrence of ``mlstm_decode`` run token
     by token over the prompt (as the reference extracts it, not a closed
-    form), fed from this block's per-token projections, computed once."""
+    form), fed from this block's per-token projections, computed once.  On
+    DTensors each rank runs its rows with the weights whole."""
+    if spmd.is_dtensor(x):
+        if state is None:
+            return spmd.rows_local(lambda p_, x_: mlstm_block(cfg, p_, x_), x, p, x)
+        return spmd.rows_local(lambda p_, x_, s_: mlstm_block(cfg, p_, x_, s_), x, p, x,
+                               states=(state,))
     cd = cfg.compute_dtype
     B, S, D = x.shape
     up, NH, dh = _mlstm_dims(cfg)
@@ -225,6 +278,9 @@ def mlstm_init_state(cfg: ModelConfig, batch: int, dtype, device, lead: tuple = 
 def mlstm_decode(cfg: ModelConfig, p, x, state):
     """x: (B, 1, D); one recurrent step.  Writes the new C, n, m and conv
     history into ``state`` IN PLACE.  Returns (out (B, 1, D), state)."""
+    if spmd.is_dtensor(x):
+        return spmd.rows_local(lambda p_, x_, s_: mlstm_decode(cfg, p_, x_, s_)[0], x, p, x,
+                               states=(state,)), state
     cd = cfg.compute_dtype
     B = x.shape[0]
     up, NH, dh = _mlstm_dims(cfg)
@@ -304,6 +360,8 @@ def _slstm_out(cfg: ModelConfig, p, hs):
 def slstm_block(cfg: ModelConfig, p, x):
     """x: (B, S, D) -> (out (B, S, D), final state): a loop over time (the
     memory mixing is serial) from the empty state."""
+    if spmd.is_dtensor(x):
+        return spmd.rows_local(lambda p_, x_: slstm_block(cfg, p_, x_), x, p, x)
     B, S, D = x.shape
     state = slstm_init_state(cfg, B, x.dtype, x.device)
     xs = x.float()
@@ -328,6 +386,9 @@ def slstm_init_state(cfg: ModelConfig, batch: int, dtype, device, lead: tuple = 
 def slstm_decode(cfg: ModelConfig, p, x, state):
     """x: (B, 1, D); one recurrent step, written into ``state`` IN PLACE.
     Returns (out (B, 1, D), state)."""
+    if spmd.is_dtensor(x):
+        return spmd.rows_local(lambda p_, x_, s_: slstm_decode(cfg, p_, x_, s_)[0], x, p, x,
+                               states=(state,)), state
     B = x.shape[0]
     new = _slstm_cell(p, x[:, 0].float(), state)
     for key, val in new.items():

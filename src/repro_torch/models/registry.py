@@ -25,7 +25,8 @@ class ModelDef(NamedTuple):
     train_nll: Callable  # (cfg, params, batch) -> (sum_nll, count)
     prefill: Callable  # (cfg, params, batch, max_seq, cache_dtype) -> (logits, cache)
     decode_step: Callable  # (cfg, params, cache, tokens) -> (logits, cache)
-    make_cache: Callable  # (cfg, batch, max_seq, dtype, device) -> cache
+    make_cache: Callable  # (cfg, batch, max_seq, dtype, device) -> cache; "meta": abstract
+    cache_axes: Callable  # (cfg) -> logical-axis tree matching make_cache
     paged: PagedDef | None = None  # block-paged decode; None => dense-only
 
 
@@ -35,6 +36,7 @@ _LM = ModelDef(
     prefill=transformer.prefill,
     decode_step=transformer.decode_step,
     make_cache=transformer.make_cache,
+    cache_axes=transformer.cache_axes,
     paged=PagedDef(
         check_support=transformer.check_paged_support,
         make_pools=transformer.make_paged_pools,
@@ -50,6 +52,7 @@ _ENCDEC = ModelDef(
     prefill=encdec.prefill,
     decode_step=encdec.decode_step,
     make_cache=encdec.make_cache,
+    cache_axes=encdec.cache_axes,
 )
 
 

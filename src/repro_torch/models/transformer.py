@@ -28,6 +28,7 @@ import torch
 from . import layers as L
 from . import moe as M
 from . import recurrent as R
+from . import spmd
 from .common import LayerKind, ModelConfig, ParamSpec, tree_map
 
 
@@ -132,6 +133,11 @@ def _rglru_layer(cfg, p, x):
 
 
 def apply_block(cfg: ModelConfig, kind: LayerKind, p, x, positions):
+    p = spmd.gathered(p)  # FSDP: a DTensor block's weights whole at use
+    return spmd.rows(_apply_block(cfg, kind, p, spmd.rows(x), positions))
+
+
+def _apply_block(cfg: ModelConfig, kind: LayerKind, p, x, positions):
     if kind.kind == "attn":
         h = L.attention(cfg, p["attn"], _norm(cfg, x, p["ln1"]), positions, kind.window)
         return _ffn_tail(cfg, kind, p, x, h)
@@ -145,6 +151,11 @@ def apply_block(cfg: ModelConfig, kind: LayerKind, p, x, positions):
 
 
 def decode_block(cfg: ModelConfig, kind: LayerKind, p, x, cache, t):
+    p = spmd.gathered(p)  # FSDP: a DTensor block's weights whole at use
+    return spmd.rows(_decode_block(cfg, kind, p, spmd.rows(x), cache, t))
+
+
+def _decode_block(cfg: ModelConfig, kind: LayerKind, p, x, cache, t):
     if kind.kind == "attn":
         h, _ = L.decode_attention(cfg, p["attn"], _norm(cfg, x, p["ln1"]), cache["attn"], t,
                                   kind.window)
@@ -182,6 +193,34 @@ def make_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype, device="cuda")
     if rem_kinds:
         cache["rem"] = {str(i): one(k, ()) for i, k in enumerate(rem_kinds)}
     return cache
+
+
+def _block_cache_axes(kind: LayerKind, stacked: bool):
+    lead = (None,) if stacked else ()
+    if kind.kind == "attn":
+        kv = lead + ("batch", "kvseq", "kv_heads", None)
+        return {"attn": {"k": kv, "v": kv}}
+    if kind.kind == "rglru":
+        return {"mix": {"h": lead + ("batch", "rnn"), "conv": lead + ("batch", None, "rnn")}}
+    if kind.kind == "mlstm":
+        return {"mix": {"C": lead + ("batch", "heads", None, None),
+                        "n": lead + ("batch", "heads", None), "m": lead + ("batch", "heads"),
+                        "conv": lead + ("batch", None, "mlp")}}
+    if kind.kind == "slstm":
+        ax = lead + ("batch", "heads", None)
+        return {"mix": {"h": ax, "c": ax, "n": ax, "m": ax}}
+    raise ValueError(kind.kind)
+
+
+def cache_axes(cfg: ModelConfig):
+    """Logical-axis tree matching ``make_cache``'s structure (the sharding
+    rules' input), the reference's leaf for leaf."""
+    P, n_periods, rem_kinds = _layout(cfg)
+    out = {"layers": {str(i): _block_cache_axes(cfg.pattern[i], True) for i in range(P)},
+           "t": ()}
+    if rem_kinds:
+        out["rem"] = {str(i): _block_cache_axes(k, False) for i, k in enumerate(rem_kinds)}
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -244,23 +283,40 @@ def _prefill_block(cfg, kind, p, x, cache, positions):
     from the full-sequence pass.  An RG-LRU or sLSTM layer's state comes
     out of its one scan; an mLSTM layer's from the decode recurrence run
     over the prompt."""
+    p = spmd.gathered(p)
     if kind.kind == "rglru":
         x, state = _rglru_layer(cfg, p, x)
         for key, val in state.items():
-            cache["mix"][key].copy_(val)
+            spmd.copy_(cache["mix"][key], val)
         return x
     if kind.kind == "mlstm":
         return x + R.mlstm_block(cfg, p["mix"], _norm(cfg, x, p["ln1"]), cache["mix"])
     if kind.kind == "slstm":
         out, state = R.slstm_block(cfg, p["mix"], _norm(cfg, x, p["ln1"]))
         for key, val in state.items():
-            cache["mix"][key].copy_(val)
+            spmd.copy_(cache["mix"][key], val)
         return x + out
     if kind.kind != "attn":
         raise ValueError(kind.kind)
     xin = _norm(cfg, x, p["ln1"])
-    _, k, v = L._qk(cfg, p["attn"], xin, positions)
-    ck, cv = cache["attn"]["k"], cache["attn"]["v"]
+    if spmd.is_dtensor(xin):
+        # every head's k/v on the rank's rows into a zero cache of those
+        # rows, then each rank keeps its block of it
+        p_l = spmd.attn_weights(p["attn"], spmd.heads_plan(cfg, xin, False, False))
+        _, k, v = L._qk(cfg, p_l, spmd.local_rows(xin, xin),
+                        spmd.local_rows(positions, xin, positions.ndim - 2))
+        c_l = {name: torch.zeros(k.shape[:1] + leaf.shape[1:], dtype=leaf.dtype,
+                                 device=k.device) for name, leaf in cache["attn"].items()}
+        _fill_attn_cache(kind, k, v, c_l["k"], c_l["v"])
+        spmd.write_back(cache["attn"], c_l, xin)
+    else:
+        _, k, v = L._qk(cfg, p["attn"], xin, positions)
+        _fill_attn_cache(kind, k, v, cache["attn"]["k"], cache["attn"]["v"])
+    return apply_block(cfg, kind, p, x, positions)
+
+
+def _fill_attn_cache(kind, k, v, ck, cv):
+    """A prefill's k/v (B, S, Hkv, dh) into an attention layer's cache."""
     Lc = ck.shape[1]
     S = k.shape[1]
     if S >= Lc:  # window (or exactly-full) cache: keep the last Lc entries
@@ -273,16 +329,18 @@ def _prefill_block(cfg, kind, p, x, cache, positions):
     else:
         ck[:, :S] = k.to(ck.dtype)
         cv[:, :S] = v.to(cv.dtype)
-    return apply_block(cfg, kind, p, x, positions)
 
 
-def prefill(cfg: ModelConfig, params, batch, max_seq: int, cache_dtype=None):
+def prefill(cfg: ModelConfig, params, batch, max_seq: int, cache_dtype=None, cache=None):
     """Run the full prompt (patch embeddings first, where given), building
-    the decode cache; returns (last_token_logits (B,1,V), cache)."""
+    the decode cache (filling ``cache`` when given, an all-zero cache of
+    ``make_cache``'s structure); returns (last_token_logits (B,1,V),
+    cache)."""
     x = _embed_inputs(cfg, params, batch)
     B, S = x.shape[:2]
     positions = _positions(cfg, batch, B, S, x.device)
-    cache = make_cache(cfg, B, max_seq, cache_dtype or cfg.compute_dtype, x.device)
+    if cache is None:
+        cache = make_cache(cfg, B, max_seq, cache_dtype or cfg.compute_dtype, x.device)
     for (kind, p), (_, c) in zip(_blocks(cfg, params), _blocks(cfg, cache)):
         x = _prefill_block(cfg, kind, p, x, c, positions)
     cache["t"] = torch.tensor(S, dtype=torch.int32, device=x.device)

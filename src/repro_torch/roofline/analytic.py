@@ -2,12 +2,14 @@
 with the H100's figures.
 
 The counts come from the architecture's configuration and the sharding
-layout (the standard MFU accounting), not from a compiled program: the
-port runs eagerly and has none.  They are the reference's counts
-(``repro/roofline/analytic.py``), function for function, and the layouts
-stay the reference's TPU slices (256 devices, 512 across two pods) until
-the port has its own meshes, so the per-device counts stay comparable.
-What differs is ``HW``: the card's peaks in place of the TPU's, so
+layout (the standard MFU accounting), not from a compiled program.  They
+are the reference's counts (``repro/roofline/analytic.py``), function for
+function, on its hand-coded layouts of the 256-device slice (512 across
+two pods), as the reference keeps them beside its dry run: the port's
+meshes (``launch.mesh.make_production_mesh`` / ``make_train_mesh``) and
+its dry run (``launch.dryrun``, per-device figures traced on a fake world
+of those ranks) do not feed them, so the counts stay comparable.  What
+differs is ``HW``: the card's peaks in place of the TPU's, so
 ``analyze_cell``'s seconds are the H100's.
 
 All *_model functions return GLOBAL per-step quantities; analyze_cell

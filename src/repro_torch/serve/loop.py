@@ -37,8 +37,10 @@ def make_prefill_step(
     cache_dtype=None,
     sampling: SamplingParams = GREEDY,
 ):
-    def prefill_step(params, batch, key=None):
-        logits, cache = model.prefill(cfg, params, batch, max_seq, cache_dtype)
+    def prefill_step(params, batch, key=None, cache=None):
+        """``cache``: an all-zero cache to fill (the dry-run cell's, laid
+        out on its mesh); None makes a new one."""
+        logits, cache = model.prefill(cfg, params, batch, max_seq, cache_dtype, cache=cache)
         gen = _generator(key, logits.device)
         return select_tokens(logits[:, -1], gen, sampling)[:, None], cache
 

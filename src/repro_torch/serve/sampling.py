@@ -50,6 +50,9 @@ def select_tokens(logits, generator: torch.Generator | None = None,
     masked, and sampled as argmax(scaled + Gumbel) with one (..., V) draw
     from ``generator``, or with the draw ``gumbel`` given (the rows of a
     larger draw, for a rank that selects some of the slots)."""
+    from repro_torch.models.spmd import replicate_dims
+
+    logits = replicate_dims(logits, [-1])  # a DTensor's vocabulary whole on every rank
     if sampling.temperature <= 0.0:
         return torch.argmax(logits, dim=-1).to(torch.int32)
     if generator is None and gumbel is None:

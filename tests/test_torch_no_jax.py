@@ -1,8 +1,10 @@
 """The port stands alone: ``repro_torch`` (its trace validator, ``python -m
 repro_torch.obs`` and the roofline too), ``chip_smoke.py`` and the rank functions of the
 multi-rank tests (``tests/torch_shard_workers.py``,
-``tests/torch_serve_workers.py``) import neither jax nor anything of the
-reference package ``repro``."""
+``tests/torch_serve_workers.py``, ``tests/torch_dryrun_workers.py``)
+import neither jax nor anything of the reference package ``repro``; the
+dry run sets no environment variable and starts no process group when it
+is imported."""
 from __future__ import annotations
 
 import pathlib
@@ -37,7 +39,8 @@ def test_importing_every_module_loads_no_jax():
             "repro_torch.configs.whisper_base", "repro_torch.launch.specs",
             "repro_torch.obs.sinks", "repro_torch.obs.validate",
             "repro_torch.obs.__main__", "repro_torch.roofline",
-            "repro_torch.roofline.analytic"} <= set(mods)
+            "repro_torch.roofline.analytic", "repro_torch.launch.dryrun",
+            "repro_torch.models.spmd"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -62,9 +65,27 @@ def test_sources_name_no_jax_or_reference_import():
     # that must stay as light as the port
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                           ROOT / "tests" / "torch_shard_workers.py",
-                                          ROOT / "tests" / "torch_serve_workers.py"]
+                                          ROOT / "tests" / "torch_serve_workers.py",
+                                          ROOT / "tests" / "torch_dryrun_workers.py"]
     hits = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
             for f in files for m in _FORBIDDEN.finditer(f.read_text())]
     assert not hits, hits
     assert _FORBIDDEN.search("from repro.models import x") and _FORBIDDEN.search("import jax")
     assert not _FORBIDDEN.search("from repro_torch import x")
+
+
+def test_dryrun_import_sets_nothing():
+    """Importing the dry run (the reference's sets ``XLA_FLAGS`` at import)
+    leaves the environment and ``torch.distributed`` as they were."""
+    code = (
+        "import os, torch.distributed as dist\n"
+        "before = dict(os.environ)\n"
+        "import repro_torch.launch.dryrun, repro_torch.launch.specs, repro_torch.models.spmd\n"
+        "assert dict(os.environ) == before\n"
+        "assert not dist.is_initialized()\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"},
+                         cwd=str(ROOT), timeout=300)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr[-2000:]
