@@ -53,8 +53,11 @@ It imports torch, numpy and repro_torch only, and:
    torch.profiler (device time by kernel class, the device's busy share of
    the profiled run's wall clock, bma_select's device time per tick);
 6. trains K=4 chains of qwen3-0.6b at full width for 8 EC-SGHMC steps
-   through ``train.loop.run`` with the fused kernel, checks the metrics,
-   the launch count and the chains' spread, and profiles two more steps;
+   through ``train.loop.run`` with the fused kernel and rematerialisation
+   (``remat="full"``, the default), checks the metrics, the launch count
+   and the chains' spread, and profiles two more steps; beside it the same
+   chains with ``remat="none"``, their s/step and peak memory, and their
+   first step (under deterministic algorithms) bit for bit remat's;
 7. the adaptive tier: holds the preconditioned Eq. 6 kernel against its
    plain version and against the scalar-mass kernel at M^-1 == 1, runs
    fused scale-adapted EC-SGHMC with a known frozen M^-1 on a Gaussian
@@ -144,8 +147,10 @@ It imports torch, numpy and repro_torch only, and:
    full width on train_4k and decode_32k traced by
    ``launch.dryrun.run_cell`` on the 256-rank fake world (per-device
    arguments, peak, collectives, FLOPs and trace time printed as
-   predictions for the card); and four cells one card holds (both archs,
-   train and decode, recurrentgemma's train cut to 3 layers), each
+   predictions for the card); and five cells one card holds (both archs,
+   train and decode, recurrentgemma's train cut to 3 layers, and qwen3's
+   train at 4096-token sequences, which fits only under remat; its
+   prediction without remat, ~284 GB, is printed beside it), each
    predicted on a one-rank fake world and run for real on a one-rank NCCL
    mesh, the predicted peak within ``DRYRUN_RTOL`` of the measured
    ``max_memory_allocated``; the fake worlds run in processes of their
@@ -1817,6 +1822,19 @@ def phase_stationary_precond(torch):
         raise AssertionError(f"on-card preconditioned stationary {bad} miss the oracle")
 
 
+def rglru_forwards(cfg) -> int:
+    """RG-LRU scans one chain's training step launches: each RG-LRU layer's
+    forward, and under ``remat="full"`` again for those in the backbone's
+    checkpointed periods (the remainder layers are not recomputed)."""
+    from repro_torch.models.transformer import _layout
+
+    P, n_periods, _ = _layout(cfg)
+    n = sum(k.kind == "rglru" for k in cfg.layer_kinds)
+    if cfg.remat == "full":
+        n += sum(k.kind == "rglru" for k in cfg.layer_kinds[:P * n_periods])
+    return n
+
+
 def phase_smoke_train(torch, arch="qwen3-0.6b", label="smoke-train", steps=3):
     """SMOKE training, card against CPU: the same params, batches, bits and
     center noise through train.loop.run with the fused sampler, ``steps``
@@ -1864,9 +1882,10 @@ def phase_smoke_train(torch, arch="qwen3-0.6b", label="smoke-train", steps=3):
                            LoopConfig(num_steps=steps, log_every=1), num_chains=K, sampler=samp)
         if dev == "cuda":
             # the hybrid's RG-LRU layers run the scan and its backward once a
-            # chain a step each
+            # chain a step each, the scan again where remat recomputes it
             n_rglru = sum(k.kind == "rglru" for k in cfg.layer_kinds)
-            want = {"fused_ec_update": steps * n_leaves, "rglru_scan": steps * K * n_rglru,
+            want = {"fused_ec_update": steps * n_leaves,
+                    "rglru_scan": steps * K * rglru_forwards(cfg),
                     "rglru_scan_bwd": steps * K * n_rglru}
             got = {n: launches[n] for n in want}
             if got != want:
@@ -1902,9 +1921,8 @@ def phase_train(torch, card, adaptive=False):
     """qwen3-0.6b at full width, K = 4 chains, 8 steps through
     train.loop.run in production mode: fused EC-SGHMC (``[train]``), or
     with ``adaptive`` fused scale-adapted EC-SGHMC across its burn-in
-    freeze (``[train-adaptive]``); then 2 profiled steps."""
-    from torch.profiler import ProfilerActivity, profile
-
+    freeze (``[train-adaptive]``); then (``[train]``) 2 profiled steps;
+    ``[train]`` also runs the cell with ``remat="none"`` (``train_remat_none``)."""
     from repro_torch import configs, core
     from repro_torch.data import chain_batches, synthetic_token_stream
     from repro_torch.diagnostics import chain_center_rms
@@ -1915,29 +1933,51 @@ def phase_train(torch, card, adaptive=False):
 
     label = "train-adaptive" if adaptive else "train"
     kernel = "fused_precond_ec_update" if adaptive else "fused_ec_update"
-    cfg = configs.get_config("qwen3-0.6b")
+    cfg = configs.get_config("qwen3-0.6b")  # remat="full", the default
     model = get_model(cfg)
     K = configs.EC_CHAINS["qwen3-0.6b"]
     log(f"[{label}] device memory before the phase: {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
-    torch.cuda.reset_peak_memory_stats()
-    params = stacked_members(torch, cfg, model, K, "cuda", seed0=300)
-    if adaptive:
-        samp = core.scale_adapted_ec_sghmc(step_size=1e-6, alpha=1.0, friction=1.0,
-                                           center_friction=1.0, sync_every=4,
-                                           burnin=ADAPTIVE_BURNIN, decay=0.99, fused=True,
-                                           state_dtype=cfg.param_dtype)
-    else:
-        samp = default_sampler(cfg, "qwen3-0.6b", K, sync_every=4, fused=True, step_size=1e-6)
-    state = samp.init(params)
     stream = synthetic_token_stream(cfg.vocab_size, seed=0, device="cuda")
     batch_fn = lambda t: chain_batches(stream, t, K, 4, 64)
-    step = make_train_step(cfg, model, samp, TRAIN_N_DATA)
+
+    def sampler():
+        if adaptive:
+            return core.scale_adapted_ec_sghmc(step_size=1e-6, alpha=1.0, friction=1.0,
+                                               center_friction=1.0, sync_every=4,
+                                               burnin=ADAPTIVE_BURNIN, decay=0.99, fused=True,
+                                               state_dtype=cfg.param_dtype)
+        return default_sampler(cfg, "qwen3-0.6b", K, sync_every=4, fused=True, step_size=1e-6)
+
+    def setup(cfg_):
+        params = stacked_members(torch, cfg_, model, K, "cuda", seed0=300)
+        samp = sampler()
+        return params, samp, samp.init(params), make_train_step(cfg_, model, samp, TRAIN_N_DATA)
+
+    # remat="none" first: its first step (the one compared with remat's)
+    # and REMAT_NONE_STEPS more, timed
+    none = None if adaptive else train_remat_none(torch, cfg.replace(remat="none"), setup,
+                                                  batch_fn, K)
+    torch.cuda.reset_peak_memory_stats()
+    params, samp, state, step = setup(cfg)
     torch.cuda.synchronize()
     reset_launches()
     t0 = time.perf_counter()
-    params, state, hist = loop.run(step, params, state, batch_fn,
-                                   LoopConfig(num_steps=TRAIN_STEPS, log_every=1, seed=0),
-                                   num_chains=K, sampler=samp)
+    if adaptive:
+        params, state, hist = loop.run(step, params, state, batch_fn,
+                                       LoopConfig(num_steps=TRAIN_STEPS, log_every=1, seed=0),
+                                       num_chains=K, sampler=samp)
+    else:
+        # step 1 as remat="none" took it, held against it bit for bit;
+        # then the other TRAIN_STEPS - 1 steps
+        params, state, hist = first_train_step(torch, step, params, state, batch_fn, samp, K)
+        none["same_params"], none["max_gap"] = same_as(torch, params, none.pop("params1"))
+        none["same_nll"] = hist[0]["nll_per_token"] == none["nll1"]
+        torch.cuda.reset_peak_memory_stats()  # the copy is gone: the peak of steps 2-8
+        params, state, rest = loop.run(step, params, state, lambda t: batch_fn(t + 1),
+                                       LoopConfig(num_steps=TRAIN_STEPS - 1, log_every=1, seed=1),
+                                       num_chains=K, sampler=samp)
+        hist += [dict(m, step=m["step"] + 1, wall_s=m["wall_s"] + hist[0]["wall_s"])
+                 for m in rest]
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = dict(launches)
@@ -1952,7 +1992,8 @@ def phase_train(torch, card, adaptive=False):
     rms = chain_center_rms(params, state.center).item()
     mom = sum(torch.sum(x.float() ** 2).item() for x in tree_leaves(state.momentum)) ** 0.5
     name = "scale-adapted EC-SGHMC" if adaptive else "EC-SGHMC"
-    log(f"[{label}] qwen3-0.6b full width, K={K}, {name}, batch 4 x 64 per chain, sync every 4, "
+    log(f"[{label}] qwen3-0.6b full width, remat {cfg.remat}, K={K}, {name}, batch 4 x 64 per "
+        f"chain, sync every 4, "
         f"eps 1e-6{f', burnin {ADAPTIVE_BURNIN}, decay 0.99' if adaptive else ''}, "
         f"{TRAIN_STEPS} steps in {wall:.2f} s; per step {['%.3f' % w for w in walls]} s; steady "
         f"{steady:.3f} s/step = {1 / max(steady, 1e-9):.3f} steps/s; peak device memory "
@@ -1961,6 +2002,15 @@ def phase_train(torch, card, adaptive=False):
         f"(ln V = {math.log(cfg.vocab_size):.3f}); chain_center_rms by step "
         f"{[float('%.4g' % m['chain_center_rms']) for m in hist]}; momentum norm {mom:.4g}; "
         f"launches {counts}")
+    if none is not None:
+        log(f"[{label}] remat none: steady {none['steady']:.3f} s/step over steps 2-"
+            f"{REMAT_NONE_STEPS + 1} (remat full {steady:.3f}: x{steady / none['steady']:.3f}); "
+            f"peak device memory over steps 2.. {none['peak'] / 2**30:.2f} GiB (remat full "
+            f"{peak / 2**30:.2f}); step 1 under deterministic algorithms: nll {none['nll1']!r} "
+            f"vs {nll0!r}, equal: {none['same_nll']}; params after it bitwise equal: "
+            f"{none['same_params']} (max |gap| {none['max_gap']:.3e}) [{card}]")
+        if not (none["same_nll"] and none["same_params"]):
+            raise AssertionError(f"[{label}] remat full and none differ after step 1: {none}")
     if abs(nll0 - math.log(cfg.vocab_size)) > 1.5:
         raise AssertionError(f"first step's nll {nll0} is not within 1.5 of ln V")
     if counts[kernel] != TRAIN_STEPS * n_leaves:
@@ -1977,8 +2027,26 @@ def phase_train(torch, card, adaptive=False):
         if len(set(moving)) != len(moving) or len(set(frozen)) != 1:
             raise AssertionError(f"V̂ did not adapt for {ADAPTIVE_BURNIN} steps and then freeze")
 
-    # where a step's time goes: 2 more steps under the profiler, their
-    # device time over their own wall clock, beside 2 unprofiled steps
+    # where a step's time goes ([train] only: [train-adaptive]'s profile,
+    # the same step but the kernel, was cut to pay for remat's time)
+    device_us, wall2, split = (None, None, None) if adaptive else profile_train_steps(
+        torch, label, step, params, state, batch_fn, K, card)
+    del params, state, samp, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, dict(wall=wall, steady=steady, peak=peak, nll0=nll0, device_us=device_us,
+                        wall2=wall2, split=split, v_means=v_means, remat=cfg.remat,
+                        remat_none=none, nll=[m["nll_per_token"] for m in hist])
+
+
+def profile_train_steps(torch, label, step, params, state, batch_fn, K, card):
+    """2 more training steps under the profiler, their device time over
+    their own wall clock, beside 2 unprofiled steps: (device µs, the
+    unprofiled wall, device µs by kernel class)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.train import LoopConfig, loop
+
     def two_steps(start):
         torch.cuda.synchronize()
         t = time.perf_counter()
@@ -2012,12 +2080,65 @@ def phase_train(torch, card, adaptive=False):
                 f"{e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<6d} {e.key[:80]}")
     else:
         log(f"[{label}-profile] torch.profiler recorded no device time: busy share not measured")
+    return device_us, wall2, split
+
+
+REMAT_NONE_STEPS = 3  # [train]'s remat="none" run: steps timed after its first
+
+
+def first_train_step(torch, step, params, state, batch_fn, samp, K):
+    """The loop's first step under deterministic algorithms (the embedding
+    gradient's scatter-add is atomic otherwise): (params, state, history)."""
+    from repro_torch.train import LoopConfig, loop
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        out = loop.run(step, params, state, batch_fn,
+                       LoopConfig(num_steps=1, log_every=1, seed=0), num_chains=K, sampler=samp)
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return out
+
+
+def same_as(torch, params, copy):
+    """(every leaf of ``params`` equal to its copy bit for bit, max |gap|)."""
+    from repro_torch.models import tree_leaves
+
+    same, gap = True, 0.0
+    for x, y in zip(tree_leaves(params), copy):
+        if not torch.equal(x, y):
+            same = False
+            gap = max(gap, float((x.float() - y.float()).abs().max()))
+    return same, gap
+
+
+def train_remat_none(torch, cfg, setup, batch_fn, K):
+    """[train]'s cell with ``remat="none"``: the first step (a copy of the
+    params after it kept on the card for remat's run to meet), then
+    REMAT_NONE_STEPS steps timed; their peak memory, the copy taken out."""
+    from repro_torch.models import tree_leaves
+    from repro_torch.train import LoopConfig, loop
+
+    torch.cuda.reset_peak_memory_stats()
+    params, samp, state, step = setup(cfg)
+    params, state, hist = first_train_step(torch, step, params, state, batch_fn, samp, K)
+    before = torch.cuda.memory_allocated()
+    params1 = [x.clone() for x in tree_leaves(params)]  # 9.5 GB, kept beside remat's run
+    copy_bytes = torch.cuda.memory_allocated() - before
+    torch.cuda.reset_peak_memory_stats()
+    params, state, rest = loop.run(step, params, state, lambda t: batch_fn(t + 1),
+                                   LoopConfig(num_steps=REMAT_NONE_STEPS, log_every=1, seed=1),
+                                   num_chains=K, sampler=samp)
+    torch.cuda.synchronize()
+    out = dict(nll1=hist[0]["nll_per_token"], params1=params1,
+               peak=torch.cuda.max_memory_allocated() - copy_bytes,  # steps 2.., as remat's
+               steady=rest[-1]["wall_s"] / len(rest),  # steps 2.., as [train]'s steady
+               nll=[m["nll_per_token"] for m in hist + rest])
     del params, state, samp, step
     gc.collect()
     torch.cuda.empty_cache()
-    return counts, dict(wall=wall, steady=steady, peak=peak, nll0=nll0, device_us=device_us,
-                        wall2=wall2, split=split, v_means=v_means,
-                        nll=[m["nll_per_token"] for m in hist])
+    return out
 
 
 HYBRID_TRAIN_LAYERS = 3  # one (rglru, rglru, attn) period of recurrentgemma-2b's 26 layers
@@ -2037,8 +2158,9 @@ def phase_train_hybrid(torch, card):
     HYBRID_TRAIN_K = 2 chains (see there) with ``[train]``'s other
     settings for TRAIN_STEPS steps through train.loop.run in
     production mode: every RG-LRU layer runs the scan kernel forward and
-    its backward kernel once a chain a step.  Exact launches, finite nll,
-    s/step over steps 2-8, peak memory and the step's model-FLOPs share of
+    its backward kernel once a chain a step, and the scan again in the
+    recomputed forward (``remat="full"``, the default).  Exact launches,
+    finite nll, s/step over steps 2-8, peak memory and the step's model-FLOPs share of
     the card's bf16 peak (6 * active params * tokens, ``roofline.HW``)."""
     from repro_torch import configs
     from repro_torch.data import chain_batches, synthetic_token_stream
@@ -2073,8 +2195,8 @@ def phase_train_hybrid(torch, card):
     n_rglru = sum(k.kind == "rglru" for k in cfg.layer_kinds)
     n_param = sum(x[0].numel() for x in tree_leaves(params))
     want = {n: 0 for n in counts}
-    want.update(rglru_scan=n_rglru * K * TRAIN_STEPS, rglru_scan_bwd=n_rglru * K * TRAIN_STEPS,
-                fused_ec_update=n_leaves * TRAIN_STEPS)
+    want.update(rglru_scan=rglru_forwards(cfg) * K * TRAIN_STEPS,
+                rglru_scan_bwd=n_rglru * K * TRAIN_STEPS, fused_ec_update=n_leaves * TRAIN_STEPS)
     nll = [m["nll_per_token"] for m in hist]
     steady = (hist[-1]["wall_s"] - hist[0]["wall_s"]) / max(len(hist) - 1, 1)
     tokens = K * 4 * 64
@@ -2110,7 +2232,7 @@ def launch_train_smoke(torch, arch, card):
     """``python -m repro_torch.launch.train --arch <arch> --smoke`` on the
     card, 4 chains for LAUNCH_TRAIN_STEPS steps (the launcher logs every
     10): finite nll, and each RG-LRU layer's scan and backward kernels once
-    a chain a step."""
+    a chain a step, the scan again where remat recomputes it."""
     from repro_torch import configs
     from repro_torch.kernels import launches, reset_launches
     from repro_torch.launch import train as train_launch
@@ -2121,14 +2243,15 @@ def launch_train_smoke(torch, arch, card):
     hist = train_launch.main(args)
     torch.cuda.synchronize()
     n = sum(k.kind == "rglru" for k in cfg.layer_kinds) * 4 * LAUNCH_TRAIN_STEPS
+    want = {"rglru_scan": rglru_forwards(cfg) * 4 * LAUNCH_TRAIN_STEPS, "rglru_scan_bwd": n}
     got = {k: launches[k] for k in ("rglru_scan", "rglru_scan_bwd")}
     nll = [m["nll_per_token"] for m in hist]
     log(f"[train-hybrid] launch.train.main({' '.join(args)}): nll per token {nll}; launches "
         f"{got} [{card}]")
     if not hist or not all(math.isfinite(v) for v in nll):
         raise AssertionError(f"[train-hybrid] launcher nll per token {nll}")
-    if got != {"rglru_scan": n, "rglru_scan_bwd": n}:
-        raise AssertionError(f"[train-hybrid] launcher launched {got}, not {n} each")
+    if got != want:
+        raise AssertionError(f"[train-hybrid] launcher launched {got}, not {want}")
     return dict(nll=nll, launches=got)
 
 
@@ -2637,11 +2760,14 @@ REFRESH_REQUESTS = 8
 REFRESH_PAIRS = 1
 EC_REFRESH_STEP = 1e-3  # EC-SGHMC over the bootstrap prior: a chunk spreads the chains past the gate
 CKPT_LAYERS = 2  # [ckpt]: qwen3-0.6b widths, depth cut from 28 and
-CKPT_K = 2  # the chains from 4, so one checkpoint is ~6 GB: the disk sets the phase's time
+# the chains from 4 to 1 (at 2: 6.0 GB), so one checkpoint is ~4.5 GB: the
+# disk sets the phase's time (cut to 1 to pay for remat's time)
+CKPT_K = 1
 # a checkpoint every 4 steps, not 2: two ~10 GB saves instead of four, each
 # bound by the disk
 CKPT_STEPS, CKPT_EVERY, CKPT_PREEMPT, CKPT_KEEP = 8, 4, 4, 2
 LAUNCH_TRAIN_STEPS = 10  # launch/train.py logs every 10 steps (LoopConfig's default)
+LAUNCH_TRAIN_CHAINS = 2  # cut from 4 to pay for remat's time
 
 
 def reset_peak(torch):
@@ -3069,14 +3195,16 @@ def phase_ckpt(torch, card):
 
 
 def phase_launch_train(torch, card):
-    """``repro_torch.launch.train.main`` at full-width qwen3-0.6b, 4 chains,
-    no checkpoint: the nll per token of every logged step is finite.  It
-    runs ``LAUNCH_TRAIN_STEPS`` = 10 steps because the launcher logs every
-    10 (the loop's default cadence, as in the reference's launcher)."""
+    """``repro_torch.launch.train.main`` at full-width qwen3-0.6b,
+    LAUNCH_TRAIN_CHAINS chains, no checkpoint: the nll per token of every
+    logged step is finite.  It runs ``LAUNCH_TRAIN_STEPS`` = 10 steps
+    because the launcher logs every 10 (the loop's default cadence, as in
+    the reference's launcher)."""
     from repro_torch.kernels import launches, reset_launches
     from repro_torch.launch import train as train_launch
 
-    args = ["--arch", "qwen3-0.6b", "--steps", str(LAUNCH_TRAIN_STEPS), "--chains", "4"]
+    args = ["--arch", "qwen3-0.6b", "--steps", str(LAUNCH_TRAIN_STEPS), "--chains",
+            str(LAUNCH_TRAIN_CHAINS)]
     reset_peak(torch)
     reset_launches()
     t0 = time.perf_counter()
@@ -3218,7 +3346,10 @@ def phase_shard(torch, card, train):
     from repro_torch.run import ChainExecutor
     from repro_torch.train import make_train_step
 
-    cfg = configs.get_config("qwen3-0.6b")
+    # remat="none": what the phase checks is the exchange, which remat
+    # leaves alone; its recompute was cut to pay for [train]'s remat="none"
+    # run and [dryrun]'s long cell
+    cfg = configs.get_config("qwen3-0.6b").replace(remat="none")
     model = get_model(cfg)
     stream = synthetic_token_stream(cfg.vocab_size, seed=0, device="cuda")
     batch_fn = lambda t: chain_batches(stream, t, SHARD_K, 4, 64)
@@ -3843,14 +3974,23 @@ DRYRUN_FULL = (("qwen3-0.6b", "train_4k"), ("qwen3-0.6b", "decode_32k"),
                ("recurrentgemma-2b", "train_4k"), ("recurrentgemma-2b", "decode_32k"))
 DRYRUN_JOBS = {"full-qwen3-train": DRYRUN_FULL[:1], "full-hybrid-train": DRYRUN_FULL[2:3],
                "full-decode": DRYRUN_FULL[1::2], "predict-train": (0, 2),
-               "predict-decode": (1, 3)}
+               "predict-decode": (1, 3), "predict-long": (4,)}
 DRYRUN_CARD = (
     ("qwen3-0.6b", "train_4k", (64, 8), 2, {}),
     ("qwen3-0.6b", "decode_32k", (8192, 16), None, {}),
     ("recurrentgemma-2b", "train_4k", (64, 8), 2, {"num_layers": 3}),  # [train-hybrid]'s cut
     ("recurrentgemma-2b", "decode_32k", (4096, 32), None, {}),
+    # 4096-token sequences: fits the card only under remat (the default)
+    ("qwen3-0.6b", "train_4k", (4096, 8), 2, {}),
 )
+# predicted beside the long cell (by "predict-long"), not run: ~284 GB
+DRYRUN_UNFIT = (("qwen3-0.6b", "train_4k", (4096, 8), 2, {"remat": "none"}),)
 DRYRUN_RTOL = 0.10  # predicted peak vs measured max_memory_allocated
+
+
+def _card_key(spec) -> str:
+    arch, shape, (seq, batch), _, overrides = spec
+    return f"{arch}/{shape}/{seq}x{batch}" + "".join(f"/{k}={v}" for k, v in overrides.items())
 
 
 def _dryrun_card_cell(spec):
@@ -3884,7 +4024,10 @@ def dryrun_child(job: str, out_path: str) -> None:
         dryrun.start_fake_world(1)
         for i in DRYRUN_JOBS[job]:
             spec = DRYRUN_CARD[i]
-            out[f"{spec[0]}/{spec[1]}"] = dryrun.trace_cell(_dryrun_card_cell(spec))
+            out[_card_key(spec)] = dryrun.trace_cell(_dryrun_card_cell(spec))
+        if job == "predict-long":
+            out["_unfit"] = {_card_key(spec): dryrun.trace_cell(_dryrun_card_cell(spec))
+                             for spec in DRYRUN_UNFIT}
     else:
         dryrun.start_fake_world(256)
         for arch, shape in DRYRUN_JOBS[job]:
@@ -3917,7 +4060,7 @@ def dryrun_measure_rank(rank, world):
         with implicit_replication():
             res = cell.fn(*args)
         torch.cuda.synchronize()
-        out[f"{spec[0]}/{spec[1]}"] = {
+        out[_card_key(spec)] = {
             "measured_peak": torch.cuda.max_memory_allocated(), "args_allocated": base,
             "run_s": time.perf_counter() - t0, "launches": dict(ops.launches),
             "finite": bool(all(torch.isfinite(t.full_tensor() if shd.is_dtensor(t) else t).all()
@@ -4024,9 +4167,10 @@ def phase_dryrun(torch, card):
     one-rank fake world and run for real on a one-rank NCCL mesh (a
     spawned rank), all at once (DRYRUN_JOBS' processes beside the rank),
     each predicted peak held within DRYRUN_RTOL of the measured
-    ``max_memory_allocated``; (c) each kernel's torch.library form on the
-    card (``phase_dryrun_ops``).  The fake group is process-global, hence
-    the processes."""
+    ``max_memory_allocated`` and under the card's 80 GB, and the
+    DRYRUN_UNFIT cells' predictions (over 80 GB) printed beside them; (c)
+    each kernel's torch.library form on the card (``phase_dryrun_ops``).
+    The fake group is process-global, hence the processes."""
     from repro_torch.kernels import ops, ref
     from repro_torch.launch.mesh import spawn_local
 
@@ -4092,12 +4236,24 @@ def phase_dryrun(torch, card):
             f"{m['args_allocated'] / 2**30:.3f}), gap {gap * 100:+.2f}% (limit "
             f"{DRYRUN_RTOL * 100:.0f}%); run {m['run_s']:.2f} s, launches "
             f"{ {k: v for k, v in m['launches'].items() if v} }")
-        if not (pred["peak_bytes"] >= 10e9 and abs(gap) <= DRYRUN_RTOL and m["finite"]):
+        if not (10e9 <= pred["peak_bytes"] < 80e9 and abs(gap) <= DRYRUN_RTOL and m["finite"]):
             raise AssertionError(f"[dryrun] {key}: predicted {pred['peak_bytes']} vs measured "
                                  f"{m['measured_peak']} (gap {gap:+.3f}), finite {m['finite']}")
-    if len(full) != len(DRYRUN_FULL) or len(pairs) != len(DRYRUN_CARD):
-        raise AssertionError(f"[dryrun] records of {sorted(full)} and {sorted(pairs)}")
-    return {"full": full, "card": pairs, "ops": ops_rows,
+    unfit = {k: v for r in res.values() for k, v in r.get("_unfit", {}).items()}
+    long_key = _card_key(DRYRUN_CARD[4])
+    for key, pred in unfit.items():
+        log(f"[dryrun] (b) {key}: predicted peak {pred['peak_bytes'] / 1e9:.2f} GB, flops "
+            f"{pred['cost_analysis']['flops']:.4e} (not run: over the card's 80 GB); with remat "
+            f"full {pairs[long_key]['predicted_peak'] / 1e9:.2f} GB predicted, "
+            f"{pairs[long_key]['measured_peak'] / 1e9:.2f} GB measured, flops "
+            f"{predicted[long_key]['cost_analysis']['flops']:.4e} [{card}]")
+        if pred["peak_bytes"] <= 80e9:
+            raise AssertionError(f"[dryrun] {key} was predicted to fit without remat")
+    if len(full) != len(DRYRUN_FULL) or len(pairs) != len(DRYRUN_CARD) or len(unfit) != len(
+            DRYRUN_UNFIT):
+        raise AssertionError(f"[dryrun] records of {sorted(full)}, {sorted(pairs)} and "
+                             f"{sorted(unfit)}")
+    return {"full": full, "card": pairs, "unfit": unfit, "ops": ops_rows,
             "seconds": {"ops": ops_s, "measure": measure_s,
                         **{j: r["_s"] for j, r in res.items()}}}
 

@@ -42,6 +42,7 @@ world.
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen3-0.6b --shape train_4k
   python -m repro_torch.launch.dryrun --all [--multi-pod | --both-meshes] [--out DIR]
+  (--peak-detail: what is live near each cell's peak, grouped by shape)
 """
 from __future__ import annotations
 
@@ -117,15 +118,22 @@ def _local(t):
 class _Tracker(TorchDispatchMode):
     """Live bytes, FLOPs and collectives of the ops on each rank's blocks.
     A DTensor op is handed back (``NotImplemented``) so that DTensor
-    desugars it into local ops and collectives, which come through here."""
+    desugars it into local ops and collectives, which come through here.
+    With ``detail`` it also keeps the live storages (shape and dtype of the
+    first tensor seen on each) of the last moment the live bytes rose 1%
+    past the last such moment: within 1% of the peak."""
 
-    def __init__(self):
+    def __init__(self, detail: bool = False):
         super().__init__()
         self.live = 0
         self.peak = 0
         self.flops = 0
         self.collectives: dict = {}
         self._sizes: dict = {}
+        self.detail = detail
+        self._meta: dict = {}
+        self._snap: list = []
+        self._snap_live = 0
 
     def track(self, t) -> None:
         st = t.untyped_storage()
@@ -135,11 +143,31 @@ class _Tracker(TorchDispatchMode):
         n = _rounded(st.nbytes())
         self._sizes[key] = n
         self.live += n
+        if self.detail:
+            self._meta[key] = (tuple(t.shape), str(t.dtype).replace("torch.", ""), n)
+            if self.live > 1.01 * self._snap_live:
+                self._snap_live, self._snap = self.live, list(self._meta.values())
         self.peak = max(self.peak, self.live)
         weakref.finalize(st, self._free, key)
 
+    def peak_live(self, top: int = 16) -> dict:
+        """The snapshot near the peak: its live bytes, the storages grouped
+        by (shape, dtype), the ``top`` largest groups first, and the count
+        and bytes of the rest."""
+        groups: dict = {}
+        for shape, dtype, n in self._snap:
+            g = groups.setdefault(f"{dtype}{list(shape)}", [0, 0])
+            g[0] += 1
+            g[1] += n
+        rows = sorted(groups.items(), key=lambda kv: -kv[1][1])
+        return {"live_bytes": self._snap_live,
+                "groups": [{"tensor": k, "count": c, "bytes": b} for k, (c, b) in rows[:top]],
+                "rest": {"groups": len(rows[top:]), "count": sum(c for _, (c, _) in rows[top:]),
+                         "bytes": sum(b for _, (_, b) in rows[top:])}}
+
     def _free(self, key) -> None:
         self.live -= self._sizes.pop(key, 0)
+        self._meta.pop(key, None)  # a later storage may take the same address
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         from torch.distributed.tensor import DTensor
@@ -200,9 +228,10 @@ def device() -> str:
     return "cuda" if torch.cuda.is_available() else "cpu"
 
 
-def trace_cell(cell) -> dict:
+def trace_cell(cell, detail: bool = False) -> dict:
     """Run ``cell.fn`` once on fake DTensor arguments and return the
-    per-device record (memory, FLOPs, collectives, timings)."""
+    per-device record (memory, FLOPs, collectives, timings; with
+    ``detail``, ``peak_live``: what is live near the peak)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.distributed.tensor.experimental import implicit_replication
 
@@ -214,7 +243,7 @@ def trace_cell(cell) -> dict:
         args = shd.empty_tree(cell.args, cell.in_shardings, cell.mesh, device())
         arg_blocks = {t.untyped_storage()._cdata: t for t in map(_local, _tensors(args))}
         arg_bytes = sum(t.untyped_storage().nbytes() for t in arg_blocks.values())
-        tracker = _Tracker()
+        tracker = _Tracker(detail)
         for t in arg_blocks.values():
             tracker.track(t)
         arg_live = tracker.live
@@ -226,7 +255,7 @@ def trace_cell(cell) -> dict:
         t_trace = time.time() - t0 - t_place
         out_blocks = {t.untyped_storage()._cdata: t for t in map(_local, _tensors(out))}
         out_bytes = sum(t.untyped_storage().nbytes() for t in out_blocks.values())
-    return {
+    rec = {
         "memory_analysis": {
             "argument_size_in_bytes": int(arg_bytes),
             "output_size_in_bytes": int(out_bytes),
@@ -240,6 +269,9 @@ def trace_cell(cell) -> dict:
         "lower_s": round(t_place, 2),
         "compile_s": round(t_trace, 2),
     }
+    if detail:
+        rec["peak_live"] = tracker.peak_live()
+    return rec
 
 
 def run_cell(
@@ -252,6 +284,7 @@ def run_cell(
     overrides: dict | None = None,
     tag: str = "",
     size: int = 16,
+    detail: bool = False,
     **cell_kw,
 ) -> dict:
     """Dry-run one cell on the (pod,) data x model mesh of ``size`` x
@@ -265,7 +298,7 @@ def run_cell(
     cell = build_cell(arch, shape_name, mesh, num_chains=num_chains, sync_every=sync_every,
                       overrides=overrides, **cell_kw)
     t_build = time.time() - t0
-    rec = trace_cell(cell)
+    rec = trace_cell(cell, detail)
     rec["lower_s"] = round(rec["lower_s"] + t_build, 2)
     record = {
         "arch": arch,
@@ -303,6 +336,10 @@ def main(argv=None):
     ap.add_argument("--sync-every", type=int, default=4)
     ap.add_argument("--tag", default="")
     ap.add_argument("--out", default="build/dryrun")
+    ap.add_argument("--remat", choices=("full", "none"), default=None,
+                    help="override the config's remat (default: the config's, full)")
+    ap.add_argument("--peak-detail", action="store_true",
+                    help="record what is live near each cell's peak (peak_live)")
     args = ap.parse_args(argv)
     out_dir = Path(args.out)
 
@@ -322,7 +359,9 @@ def main(argv=None):
         start_fake_world(512 if mp else 256)
         label = f"{arch} x {shape} x {'2-pod(512)' if mp else '1-pod(256)'}"
         try:
-            rec = run_cell(arch, shape, mp, out_dir, args.chains, args.sync_every, tag=args.tag)
+            rec = run_cell(arch, shape, mp, out_dir, args.chains, args.sync_every, tag=args.tag,
+                           detail=args.peak_detail,
+                           overrides={"remat": args.remat} if args.remat else None)
             ma = rec["memory_analysis"]
             log.info(f"[ok] {label}: trace={rec['compile_s']}s "
                      f"flops/dev={rec['cost_analysis']['flops']:.3e} "

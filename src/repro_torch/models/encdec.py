@@ -19,7 +19,7 @@ import torch
 from . import layers as L
 from . import spmd
 from .common import ModelConfig, ParamSpec, tree_map
-from .transformer import _norm, stack_specs
+from .transformer import _norm, checkpointed, stack_specs
 
 DEC_POS_ROWS = 36864  # learned decoder positions, sized for the largest decode cell
 
@@ -69,9 +69,10 @@ def param_specs(cfg: ModelConfig) -> dict:
 
 def _layers(stack, n: int):
     """The n layers of a stacked param tree, each leaf unbound once (so a
-    backward pass writes each leaf's gradient in one stack)."""
+    backward pass writes each leaf's gradient in one stack), as they lie
+    (a layer gathers its own at use)."""
     per = tree_map(lambda a: a.unbind(0), stack)
-    return [spmd.gathered(tree_map(lambda a: a[i], per)) for i in range(n)]
+    return [tree_map(lambda a: a[i], per) for i in range(n)]
 
 
 def _sinusoid(T: int, D: int, device):
@@ -87,10 +88,15 @@ def encode(cfg: ModelConfig, params, frame_embeds):
     B, T, D = frame_embeds.shape
     x = frame_embeds.to(cd) + _sinusoid(T, D, frame_embeds.device).to(cd)[None]
     positions = torch.arange(T, dtype=torch.int32, device=x.device)[None].expand(B, T)
-    for p in _layers(params["enc_layers"], cfg.enc_layers):
+
+    def layer(x, p):
+        p = spmd.gathered(p)
         x = x + L.attention(cfg, p["attn"], _norm(cfg, x, p["ln1"]), positions, None,
                             causal=False)
-        x = x + L.mlp(cfg, p["mlp"], _norm(cfg, x, p["ln2"]))
+        return x + L.mlp(cfg, p["mlp"], _norm(cfg, x, p["ln2"]))
+
+    for p in _layers(params["enc_layers"], cfg.enc_layers):
+        x = checkpointed(layer, x, p)
     return _norm(cfg, x, params["enc_norm"])
 
 
@@ -114,14 +120,18 @@ def _enc_kv(cfg, p, enc_out):
 def _decoder(cfg, params, tokens, enc_out, cache=None):
     """The decoder over a whole prompt from position 0.  With ``cache``
     (from :func:`make_cache`), each layer's self k/v and cross k/v are
-    written into it in place, as the prefill needs."""
+    written into it in place, as the prefill needs.  Every layer, as every
+    encoder layer, is checkpointed whatever ``cfg.remat`` says (the
+    reference's ``jax.checkpoint`` around both scans)."""
     cd = cfg.compute_dtype
     B, S = tokens.shape
     x = L.embed(cfg, params["embed"], tokens)
     pos_ids = torch.arange(S, dtype=torch.int32, device=x.device)
     x = x + params["dec_pos"][pos_ids.long()].to(cd)[None]
     positions = pos_ids[None].expand(B, S)
-    for i, p in enumerate(_layers(params["dec_layers"], cfg.num_layers)):
+
+    def layer(x, p, i):
+        p = spmd.gathered(p)
         xin = _norm(cfg, x, p["ln1"])
         if cache is not None:
             _, k, v = L._qk(cfg, p["attn"], xin, positions)
@@ -133,7 +143,10 @@ def _decoder(cfg, params, tokens, enc_out, cache=None):
             cache["cross_k"][i].copy_(kv[0])
             cache["cross_v"][i].copy_(kv[1])
         x = x + _cross_attention(cfg, p["xattn"], _norm(cfg, x, p["ln_x"]), kv)
-        x = x + L.mlp(cfg, p["mlp"], _norm(cfg, x, p["ln2"]))
+        return x + L.mlp(cfg, p["mlp"], _norm(cfg, x, p["ln2"]))
+
+    for i, p in enumerate(_layers(params["dec_layers"], cfg.num_layers)):
+        x = checkpointed(lambda x_, p_, i=i: layer(x_, p_, i), x, p)
     return _norm(cfg, x, params["final_norm"])
 
 
@@ -211,6 +224,7 @@ def decode_step(cfg: ModelConfig, params, cache, tokens):
     valid = torch.arange(S_max, device=x.device) <= t
     pos = t.long().expand(B)[:, None]
     for i, p in enumerate(_layers(params["dec_layers"], cfg.num_layers)):
+        p = spmd.gathered(p)
         sk, sv = cache["self_k"][i], cache["self_v"][i]
         q, k, v = L._qk(cfg, p["attn"], _norm(cfg, x, p["ln1"]), pos)
         sk.index_copy_(1, slot, k.to(sk.dtype))

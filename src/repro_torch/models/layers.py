@@ -393,22 +393,28 @@ def embed_specs(cfg: ModelConfig) -> dict:
 
 
 def embed(cfg: ModelConfig, p, tokens):
+    """The token rows of the table, in the compute dtype.  Under
+    ``cfg.embed_onehot`` the lookup is the reference's contraction
+    ``one_hot(tokens) @ table``, meant for a vocabulary-sharded table (a
+    local product and one reduction, where a gather moves the whole
+    table); the values are the gather's."""
     p = spmd.gathered(p)
+    cd = cfg.compute_dtype
     if spmd.is_dtensor(p["table"]):
-        x = spmd.take_rows(p["table"], tokens.long()).to(cfg.compute_dtype)
+        x = spmd.take_rows(p["table"], tokens.long(), cd if cfg.embed_onehot else None).to(cd)
+    elif cfg.embed_onehot:
+        x = F.one_hot(tokens.long(), cfg.vocab_size).to(cd) @ p["table"].to(cd)
     else:
-        x = p["table"][tokens.long()].to(cfg.compute_dtype)
+        x = p["table"][tokens.long()].to(cd)
     if cfg.embed_scale == "sqrt_d":
-        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=cfg.compute_dtype)
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=cd)
     return x
 
 
 def _logits_chunk(cfg: ModelConfig, p, x):
     cd = cfg.compute_dtype
-    if cfg.tie_embeddings:
-        logits = x.to(cd) @ p["table"].to(cd).T
-    else:
-        logits = x.to(cd) @ p["unembed"].to(cd)
+    w = p["table"].to(cd).T if cfg.tie_embeddings else p["unembed"].to(cd)
+    logits = spmd.vocab_product(x.to(cd), w) if spmd.is_dtensor(x) else x.to(cd) @ w
     return _softcap(logits.float(), cfg.final_logit_softcap)
 
 
@@ -429,7 +435,7 @@ def chunked_xent(cfg: ModelConfig, p, x, labels, mask=None):
     sum_nll = torch.zeros((), dtype=torch.float32, device=x.device)
     for s0 in range(0, S, C):
         logits = _logits_chunk(cfg, p, x[:, s0:s0 + C])  # (B, C, V) f32
-        lse = torch.logsumexp(logits, dim=-1)
+        lse = spmd.logsumexp(logits)
         gold = spmd.take_last(logits, labels[:, s0:s0 + C].long())
         sum_nll = sum_nll + torch.sum((lse - gold) * mask[:, s0:s0 + C].float())
     return sum_nll, torch.sum(mask.float())

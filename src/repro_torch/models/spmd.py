@@ -35,14 +35,15 @@ def is_dtensor(x) -> bool:
 
 
 def _placements(mesh, spec: dict) -> tuple:
-    """Placements from ``{mesh dim: tensor dim | "partial"}``; absent mesh
-    dims replicate."""
+    """Placements from ``{mesh dim: tensor dim | "partial" | "max"}`` (a
+    partial sum or max); absent mesh dims replicate."""
     from torch.distributed.tensor import Partial, Replicate, Shard
 
     out = []
     for i in range(mesh.ndim):
         d = spec.get(i)
-        out.append(Replicate() if d is None else Partial() if d == "partial" else Shard(d))
+        out.append(Replicate() if d is None else Partial() if d == "partial" else
+                   Partial("max") if d == "max" else Shard(d))
     return tuple(out)
 
 
@@ -297,6 +298,28 @@ def take_last(x, idx):
     return wrap(g, mesh, spec)
 
 
+def logsumexp(x):
+    """``torch.logsumexp(x, -1)``: on a DTensor whose last dim (the
+    vocabulary) is split, each rank reduces its block, and one all-reduce
+    of the row maxima and one of the sums of exponentials combine them
+    (GSPMD's partitioned reduction); DTensor's own ``logsumexp`` gathers
+    every row's whole vocabulary first.  The result is laid out as ``x``'s
+    other dims."""
+    last = x.ndim - 1
+    vocab = [i for i, p in enumerate(x.placements) if p.is_shard() and p.dim == last] \
+        if is_dtensor(x) else []
+    if not vocab:
+        return torch.logsumexp(x, dim=-1)
+    mesh = x.device_mesh
+    lead = {i: p.dim for i, p in enumerate(x.placements) if p.is_shard() and p.dim != last}
+    loc = x.to_local()
+    m = _moved(wrap(loc.detach().amax(dim=-1), mesh, {**lead, **{i: "max" for i in vocab}}),
+               _placements(mesh, lead))
+    s = torch.sum(torch.exp(loc - m.to_local()[..., None]), dim=-1)
+    s = _moved(wrap(s, mesh, {**lead, **{i: "partial" for i in vocab}}), _placements(mesh, lead))
+    return torch.log(s) + m
+
+
 def copy_(dst, src) -> None:
     """``dst.copy_(src)`` in place, ``src`` brought to ``dst``'s layout."""
     if not is_dtensor(dst):
@@ -327,13 +350,15 @@ def rows_local(fn, like, weights, *trees, states=()):
     return _wrap_rows(out, like)
 
 
-def take_rows(table, idx):
+def take_rows(table, idx, onehot=None):
     """``table[idx]`` for a DTensor table (V, D) and integer ``idx`` laid
     out by rows: each rank looks its rows up in its block of the table
     (the vocabulary split over ``model`` or whole), the entries outside the
     block zero, and the results are summed over ``model`` (GSPMD's
     partitioned gather); the table's gradient is a partial sum over the
-    rows' mesh dims."""
+    rows' mesh dims.  With ``onehot`` (a dtype) the lookup in the block is
+    the contraction ``one_hot(idx) @ block`` in that dtype (the reference's
+    ``embed_onehot``), counted as the matmul it is."""
     mesh = table.device_mesh
     like = idx if is_dtensor(idx) else None
     rows = row_dims(like) if like is not None else {}
@@ -342,10 +367,35 @@ def take_rows(table, idx):
     loc = to_layout(table, mesh, {mi: 0} if split else {}, frozenset(rows))
     ids = to_layout(idx, mesh, rows) if is_dtensor(idx) else idx
     rel = ids - (offset(table, 0) if split else 0)
-    inside = (rel >= 0) & (rel < loc.shape[0])
-    out = loc[rel.clamp(0, loc.shape[0] - 1)]
-    out = torch.where(inside[..., None], out, torch.zeros((), dtype=out.dtype, device=out.device))
+    n = loc.shape[0]
+    if onehot is not None:  # an index outside the block matches no column: a zero row
+        out = (rel[..., None] == torch.arange(n, device=rel.device)).to(onehot) @ loc.to(onehot)
+    else:
+        inside = (rel >= 0) & (rel < n)
+        out = loc[rel.clamp(0, n - 1)]
+        out = torch.where(inside[..., None], out,
+                          torch.zeros((), dtype=out.dtype, device=out.device))
     spec = dict(rows)
     if split:
         spec[mi] = "partial"
     return wrap(out, mesh, spec)
+
+
+def vocab_product(x, w):
+    """``x @ w`` for an activation ``x`` (B, S, D) laid out by rows and a
+    DTensor weight ``w`` (D, V) whole but for the vocabulary, which
+    ``model`` may split: each rank multiplies its rows by its block of the
+    vocabulary, and the logits come out laid out by the rows and split as
+    ``w`` is, with no collective (the backward sums ``w``'s gradient over
+    the rows' mesh dims and ``x``'s over ``model``).  DTensor's own matmul
+    flattens (B, S) first, which it refuses when a one-row batch is split."""
+    mesh = x.device_mesh
+    rd = row_dims(x)
+    mi = model_axis(w)[0]
+    split = split_on(w, 1)
+    w_l = to_layout(w, mesh, {mi: 1} if split else {}, frozenset(rd))
+    x_l = to_layout(x, mesh, rd, frozenset({mi}) if split else ())
+    spec = dict(rd)
+    if split:
+        spec[mi] = 2
+    return wrap(x_l @ w_l, mesh, spec)

@@ -29,7 +29,7 @@ from . import layers as L
 from . import moe as M
 from . import recurrent as R
 from . import spmd
-from .common import LayerKind, ModelConfig, ParamSpec, tree_map
+from .common import LayerKind, ModelConfig, ParamSpec, tree_leaves, tree_map, tree_unflatten
 
 
 _XLSTM = ("mlstm", "slstm")
@@ -247,18 +247,54 @@ def _embed_inputs(cfg: ModelConfig, params, batch):
     return x
 
 
-def backbone(cfg: ModelConfig, params, x, positions):
-    """Every block, then the final norm.  The stacked layer leaves are
-    unbound once, so the backward pass writes each leaf's gradient in one
-    stack (indexing per layer would build one full-size gradient per
-    layer).  No rematerialisation: the reference's ``remat`` is a memory
-    tactic that leaves the values unchanged, and the training slice's
-    activations are small."""
+def checkpointed(fn, x, tree):
+    """``fn(x, tree)`` with its activations recomputed in the backward pass
+    (``torch.utils.checkpoint``, non-reentrant: ``torch.autograd.grad``
+    takes it), when autograd would record it: grad mode on and ``x`` or a
+    leaf of ``tree`` requiring grad.  Otherwise ``fn`` runs as it is, so
+    serving never enters the checkpoint.  ``tree``'s leaves are the
+    checkpoint's inputs: a DTensor block's sharded weights, gathered inside
+    ``fn``, so the gathered copies are not kept for the backward pass.  No
+    forward of the models draws random numbers, so the RNG state is not
+    saved (a card's RNG state cannot be captured under fake tensors)."""
+    leaves = tree_leaves(tree)
+    grads = x.requires_grad or any(t.requires_grad for t in leaves)
+    if not (torch.is_grad_enabled() and grads):
+        return fn(x, tree)
+    if torch._C._are_functorch_transforms_active():
+        raise RuntimeError(
+            "rematerialisation (cfg.remat='full', and every whisper layer) runs "
+            "torch.utils.checkpoint, which torch.func transforms (core.chainwise) do not "
+            "support: build the config with remat='none' to take gradients under torch.func")
+    from torch.utils.checkpoint import checkpoint
+
+    return checkpoint(lambda x_, *ls: fn(x_, tree_unflatten(tree, ls)), x, *leaves,
+                      use_reentrant=False, preserve_rng_state=False)
+
+
+def backbone(cfg: ModelConfig, params, x, positions, remat: bool | None = None):
+    """Every block, then the final norm.  With ``remat`` (None: ``cfg.remat
+    == "full"``) each period of the P pattern layers is checkpointed: its
+    forward is recomputed in the backward pass and nothing inside it is
+    kept, as the reference wraps its scanned period in
+    ``jax.checkpoint(..., policy=nothing_saveable)``; the remainder layers
+    are not.  The values are the same bit for bit either way.  The stacked
+    layer leaves are unbound once, so the backward pass writes each leaf's
+    gradient in one stack (indexing per layer would build one full-size
+    gradient per layer)."""
     P, n_periods, rem_kinds = _layout(cfg)
+    if remat is None:
+        remat = cfg.remat == "full"
+
+    def period(x, pslice):
+        for i in range(P):
+            x = apply_block(cfg, cfg.pattern[i], pslice[str(i)], x, positions)
+        return x
+
     per = [tree_map(lambda a: a.unbind(0), params["layers"][str(i)]) for i in range(P)]
     for n in range(n_periods):
-        for i in range(P):
-            x = apply_block(cfg, cfg.pattern[i], tree_map(lambda a: a[n], per[i]), x, positions)
+        pslice = {str(i): tree_map(lambda a: a[n], per[i]) for i in range(P)}
+        x = checkpointed(period, x, pslice) if remat else period(x, pslice)
     for i, kind in enumerate(rem_kinds):
         x = apply_block(cfg, kind, params["rem"][str(i)], x, positions)
     return _norm(cfg, x, params["final_norm"])

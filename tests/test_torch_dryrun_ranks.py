@@ -10,6 +10,8 @@ tensors, spawned by ``launch.mesh.spawn_local`` (rank functions in
   the same tensors.
 * Their decode cells on a (data 2, model 2) mesh give the plain step's
   tokens, and caches within the same rule.
+* qwen3's train cell with ``embed_onehot`` (the lookup a contraction over
+  the vocabulary split over ``model``) equals its plain step likewise.
 """
 from __future__ import annotations
 
@@ -52,6 +54,16 @@ def test_train_cell_on_4_ranks_matches_plain_step(arch, gloo_runs):
     _check_close(res[0], plain, arch)
     for r in res[1:]:
         _check_close(r, res[0], f"{arch} rank agreement")
+
+
+def test_embed_onehot_train_cell_on_4_ranks_matches_plain_step(gloo_runs):
+    res = gloo_runs[(ARCHS[0], "train-onehot")]
+    plain = res[0].pop("plain")
+    _check_close(res[0], plain, "onehot")
+    gather = {k: v for k, v in gloo_runs[(ARCHS[0], "train")][0].items() if k != "plain"}
+    _check_close(plain, gather, "onehot vs gather")
+    for r in res[1:]:
+        _check_close(r, res[0], "onehot rank agreement")
 
 
 @pytest.mark.parametrize("arch", ARCHS)

@@ -62,12 +62,13 @@ def _noise_fn(cfg, params):
     return fn
 
 
-def train_rank(rank, world, arch):
+def train_rank(rank, world, arch, overrides=None):
     """The SMOKE train cell on a (chain 1, data 2, model 2) mesh, K = 2
-    chains at the syncing step, against the plain step (rank 0)."""
+    chains at the syncing step, against the plain step (rank 0); the
+    config's fields ``overrides`` replaced on both."""
     torch.set_num_threads(1)
     narrow_shapes()
-    cfg = configs.get_config(arch, smoke=True)
+    cfg = configs.get_config(arch, smoke=True).replace(**(overrides or {}))
     model = get_model(cfg)
     mesh = mesh_lib.make_train_mesh(1, size=2)
     gen = torch.Generator().manual_seed(3)
@@ -79,7 +80,7 @@ def train_rank(rank, world, arch):
     batch = {"tokens": toks[..., :-1].contiguous(), "labels": toks[..., 1:].contiguous()}
     noise_fn = _noise_fn(cfg, params)
     cell = build_cell(arch, "train_4k", mesh, smoke=True, num_chains=K, sync_every=SYNC,
-                      noise_fn=noise_fn)
+                      noise_fn=noise_fn, overrides=overrides)
     sampler = default_sampler(cfg, arch, K, SYNC)
     state = sampler.init(tree_map(torch.clone, params))._replace(step=SYNC - 1)
     key = rnglib.key(5)
@@ -132,6 +133,10 @@ def decode_rank(rank, world, arch):
 
 
 def cells_rank(rank, world, archs):
-    """``train_rank`` and ``decode_rank`` of each arch, in one process."""
-    return {(arch, kind): fn(rank, world, arch) for arch in archs
-            for kind, fn in (("train", train_rank), ("decode", decode_rank))}
+    """``train_rank`` and ``decode_rank`` of each arch, and the first
+    arch's train cell with the one-hot embedding lookup (its table split
+    over ``model``), in one process."""
+    out = {(arch, kind): fn(rank, world, arch) for arch in archs
+           for kind, fn in (("train", train_rank), ("decode", decode_rank))}
+    out[(archs[0], "train-onehot")] = train_rank(rank, world, archs[0], {"embed_onehot": True})
+    return out
